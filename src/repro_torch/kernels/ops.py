@@ -1,0 +1,92 @@
+"""Public wrappers for the WSI main path's kernels, with dispatch on the device.
+
+``impl`` selects:
+  * ``"auto"``  — the tensor's device decides: a CUDA tensor launches the
+                  hand-written kernel, a CPU tensor takes the plain version;
+  * ``"cuda"``  — the kernel; a CPU tensor is an error;
+  * ``"torch"`` — the plain PyTorch version (``ref``) on any device, the
+                  comparison that ``chip_smoke.py`` holds each kernel against.
+A kernel that fails to build or launch raises; nothing falls back.
+
+Names, argument order and defaults follow ``repro.kernels.ops``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.ccl import ccl_cuda
+from repro_torch.kernels.color_deconv import color_deconv_cuda
+from repro_torch.kernels.glcm import glcm_cuda
+from repro_torch.kernels.morph_recon import morph_recon_cuda
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+    """Whether this call launches the CUDA kernel for a tensor ``x``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (want one of {IMPLS})")
+    if impl == "torch":
+        return False
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got one on {x.device}")
+    return x.is_cuda
+
+
+# -- color deconvolution ------------------------------------------------------
+def color_deconv(rgb: torch.Tensor, minv: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """(3, H, W) float in [0,1] -> (3, H, W) stain densities."""
+    minv = minv.to(device=rgb.device, dtype=torch.float32)
+    if _use_kernel(impl, rgb):
+        return color_deconv_cuda(rgb, minv.contiguous())
+    return ref.color_deconv_ref(rgb, minv)
+
+
+# -- morphological reconstruction ----------------------------------------------
+def morph_recon(
+    marker: torch.Tensor, mask: torch.Tensor, impl: str = "auto", max_iters: int = 128
+) -> torch.Tensor:
+    if _use_kernel(impl, mask):
+        return morph_recon_cuda(marker, mask, max_iters=max_iters)
+    return ref.morph_recon_ref(marker, mask, max_iters=max_iters)
+
+
+def fill_holes(mask01: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Border-seeded reconstruction of the complement, on the reconstruction
+    kernel for a CUDA tensor (capped as ``ref.fill_holes_ref`` is)."""
+    if not _use_kernel(impl, mask01):
+        return ref.fill_holes_ref(mask01)
+    marker, inv = ref.fill_holes_seed(mask01)
+    return 1.0 - morph_recon_cuda(marker, inv, max_iters=ref.REF_MAX_ITERS)
+
+
+# -- connected components ----------------------------------------------------------
+def connected_components(
+    mask: torch.Tensor, impl: str = "auto", max_iters: int = 128
+) -> torch.Tensor:
+    """Labels: min flat index per 4-connected component; background -1.
+
+    The CUDA kernel (union-find) always reaches the fixed point and does not
+    read ``max_iters``; the plain version stops after ``max_iters`` sweeps.
+    """
+    if not _use_kernel(impl, mask):
+        return ref.ccl_ref(mask, max_iters=max_iters)
+    if mask.dtype != torch.int32:
+        mask = (mask != 0).to(torch.int32)
+    return ccl_cuda(mask)
+
+
+# -- GLCM / histogram features -------------------------------------------------------
+def glcm_histogram(
+    bins: torch.Tensor, num_bins: int, impl: str = "auto"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    if _use_kernel(impl, bins):
+        return glcm_cuda(bins, num_bins)
+    return ref.glcm_ref(bins, num_bins), ref.histogram_ref(bins, num_bins)
+
+
+def texture_features(bins: torch.Tensor, num_bins: int, impl: str = "auto") -> torch.Tensor:
+    """(B, H, W) int bins -> (B, 9) [5 GLCM + 4 histogram] features."""
+    g, h = glcm_histogram(bins, num_bins, impl=impl)
+    return torch.cat([ref.glcm_features_ref(g), ref.histogram_features_ref(h)], dim=-1)

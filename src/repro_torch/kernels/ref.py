@@ -1,0 +1,286 @@
+"""Plain PyTorch versions of the WSI main path's kernels (the ``ref.py`` contract).
+
+Each function here computes what ``repro.kernels.ref`` computes, on any
+device. The kernel wrappers take these for CPU tensors, the CPU tests hold
+them against the JAX package, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.
+
+Reconstruction and min-label propagation are written as the sequential
+1-D recurrences that the reference evaluates with ``associative_scan``.
+min and max only select values and never round, so every directional pass,
+and so every sweep, equals the reference's bit for bit, and ``max_iters``
+counts the same sweeps.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Fixed-point cap of the plain reconstruction and labeling (the reference's
+# defaults; ``fill_holes`` reconstructs under this cap too).
+REF_MAX_ITERS = 256
+
+# --------------------------------------------------------------------------
+# Color deconvolution (stain unmixing)
+# --------------------------------------------------------------------------
+# Ruifrok & Johnston H&E+DAB stain matrix (rows: stains, cols: RGB OD).
+RUIFROK_HED = np.array(
+    [
+        [0.650, 0.704, 0.286],  # hematoxylin
+        [0.072, 0.990, 0.105],  # eosin
+        [0.268, 0.570, 0.776],  # DAB
+    ],
+    dtype=np.float32,
+)
+
+
+def stain_inverse(stain_matrix: np.ndarray = RUIFROK_HED) -> np.ndarray:
+    m = np.asarray(stain_matrix, dtype=np.float64)
+    m = m / np.linalg.norm(m, axis=1, keepdims=True)
+    return np.linalg.inv(m).astype(np.float32)
+
+
+def color_deconv_ref(rgb: torch.Tensor, minv: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """(..., 3, H, W) float in [0,1] -> (..., 3, H, W) stain densities."""
+    od = -torch.log10(torch.clamp(rgb, eps, 1.0))
+    # channels-first planar: out[s] = sum_c minv[c, s] * od[c]
+    return torch.einsum("...chw,cs->...shw", od, minv.to(od))
+
+
+# --------------------------------------------------------------------------
+# Morphological reconstruction by dilation (ReconToNuclei / FillHoles core)
+# --------------------------------------------------------------------------
+def _recon_scan_1d(j: torch.Tensor, mask: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
+    """m_i = min(mask_i, max(j_i, m_{i-1})) along ``dim``, m_{-1} = -inf."""
+    out = torch.empty_like(j)
+    n = j.shape[dim]
+    prev = None
+    for i in range(n - 1, -1, -1) if reverse else range(n):
+        oi = out.select(dim, i)
+        if prev is None:
+            torch.minimum(mask.select(dim, i), j.select(dim, i), out=oi)
+        else:
+            torch.maximum(j.select(dim, i), prev, out=oi)
+            torch.minimum(mask.select(dim, i), oi, out=oi)
+        prev = oi
+    return out
+
+
+def morph_recon_sweep_ref(marker: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One 4-direction sweep (down, up, right, left) of reconstruction."""
+    j = torch.minimum(marker, mask)
+    j = _recon_scan_1d(j, mask, dim=-2, reverse=False)
+    j = _recon_scan_1d(j, mask, dim=-2, reverse=True)
+    j = _recon_scan_1d(j, mask, dim=-1, reverse=False)
+    j = _recon_scan_1d(j, mask, dim=-1, reverse=True)
+    return j
+
+
+def morph_recon_ref(
+    marker: torch.Tensor, mask: torch.Tensor, max_iters: int = REF_MAX_ITERS
+) -> torch.Tensor:
+    """Grayscale reconstruction by dilation to fixed point (4-connectivity).
+
+    Stops when a sweep changes nothing or after ``max_iters`` sweeps, the
+    first sweep included.
+    """
+    prev = torch.minimum(marker, mask)
+    j = morph_recon_sweep_ref(prev, mask)
+    it = 1
+    while it < max_iters and bool((j != prev).any()):
+        prev, j = j, morph_recon_sweep_ref(j, mask)
+        it += 1
+    return j
+
+
+def fill_holes_seed(mask01: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(marker, mask) of the border-seeded reconstruction of the complement."""
+    inv = 1.0 - mask01
+    border = torch.zeros_like(mask01)
+    border[..., 0, :] = 1.0
+    border[..., -1, :] = 1.0
+    border[..., :, 0] = 1.0
+    border[..., :, -1] = 1.0
+    return torch.minimum(border, inv), inv
+
+
+def fill_holes_ref(mask01: torch.Tensor) -> torch.Tensor:
+    """Binary fill-holes via border-seeded reconstruction of the complement."""
+    marker, inv = fill_holes_seed(mask01)
+    return 1.0 - morph_recon_ref(marker, inv)
+
+
+# --------------------------------------------------------------------------
+# Connected component labeling
+# --------------------------------------------------------------------------
+_BIG = torch.iinfo(torch.int32).max
+
+
+def ccl_unionfind_host(mask: np.ndarray) -> np.ndarray:
+    """The paper's BWLabel: union-find forest over 4-neighbors (host oracle).
+
+    Returns int32 labels; background = -1; each component labeled by the
+    minimum flat index it contains (canonical form).
+    """
+    mask = np.asarray(mask) != 0
+    h, w = mask.shape
+    parent = np.arange(h * w, dtype=np.int64)
+
+    def find(x: int) -> int:
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:  # path compression
+            parent[x], x = root, parent[x]
+        return root
+
+    def union(a: int, b: int) -> None:
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            if ra < rb:
+                parent[rb] = ra
+            else:
+                parent[ra] = rb
+
+    for i in range(h):
+        for j in range(w):
+            if not mask[i, j]:
+                continue
+            idx = i * w + j
+            if i > 0 and mask[i - 1, j]:
+                union(idx, idx - w)
+            if j > 0 and mask[i, j - 1]:
+                union(idx, idx - 1)
+    labels = np.full((h, w), -1, dtype=np.int32)
+    for i in range(h):
+        for j in range(w):
+            if mask[i, j]:
+                labels[i, j] = find(i * w + j)
+    return labels
+
+
+def _ccl_scan_1d(labels: torch.Tensor, mask: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
+    """Min-label propagation along ``dim`` within mask runs.
+
+    v_i = min(l_i, v_{i-1} if mask_i else +inf), v_{-1} = +inf. Off the mask
+    v_i = l_i, so v is also the pass's output.
+    """
+    out = torch.empty_like(labels)
+    big = torch.full_like(labels.select(dim, 0), _BIG)
+    prev = big
+    for i in range(labels.shape[dim] - 1, -1, -1) if reverse else range(labels.shape[dim]):
+        oi = out.select(dim, i)
+        torch.minimum(labels.select(dim, i), torch.where(mask.select(dim, i), prev, big), out=oi)
+        prev = oi
+    return out
+
+
+def ccl_sweep_ref(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    l = _ccl_scan_1d(labels, mask, dim=-2, reverse=False)
+    l = _ccl_scan_1d(l, mask, dim=-2, reverse=True)
+    l = _ccl_scan_1d(l, mask, dim=-1, reverse=False)
+    l = _ccl_scan_1d(l, mask, dim=-1, reverse=True)
+    return l
+
+
+def ccl_ref(mask: torch.Tensor, max_iters: int = REF_MAX_ITERS) -> torch.Tensor:
+    """Min-label propagation to fixed point; canonical (min flat index)."""
+    mask_b = mask != 0
+    h, w = mask.shape[-2], mask.shape[-1]
+    init = torch.arange(h * w, dtype=torch.int32, device=mask.device).reshape(h, w)
+    init = init.expand(mask.shape)
+    prev = torch.where(mask_b, init, torch.full_like(init, _BIG))
+    l = ccl_sweep_ref(prev, mask_b)
+    it = 1
+    while it < max_iters and bool((l != prev).any()):
+        prev, l = l, ccl_sweep_ref(l, mask_b)
+        it += 1
+    return torch.where(mask_b, l, torch.full_like(l, -1))
+
+
+# --------------------------------------------------------------------------
+# GLCM + histogram texture features (feature computation stage)
+# --------------------------------------------------------------------------
+def quantize_ref(tile: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """float [0,1] -> int32 bins [0, num_bins); ``.to(int32)`` truncates."""
+    return torch.clamp((tile * num_bins).to(torch.int32), 0, num_bins - 1)
+
+
+def _one_hot(x: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """float32 one-hot; out-of-range values give an all-zero row."""
+    iota = torch.arange(num_bins, dtype=x.dtype, device=x.device)
+    return (x.unsqueeze(-1) == iota).to(torch.float32)
+
+
+def glcm_ref(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Horizontal-neighbor co-occurrence counts: (..., NB, NB) float32."""
+    lead = bins.shape[:-2]
+    lhot = _one_hot(bins[..., :, :-1].reshape(*lead, -1), num_bins)
+    rhot = _one_hot(bins[..., :, 1:].reshape(*lead, -1), num_bins)
+    return torch.einsum("...pa,...pb->...ab", lhot, rhot)
+
+
+def glcm_features_ref(glcm: torch.Tensor) -> torch.Tensor:
+    """Haralick features from a GLCM: (contrast, energy, homogeneity,
+    entropy, correlation) -> (..., 5)."""
+    nb = glcm.shape[-1]
+    dims = (-2, -1)
+    p = glcm / torch.clamp(glcm.sum(dim=dims, keepdim=True), min=1e-12)
+    i = torch.arange(nb, dtype=torch.float32, device=glcm.device)[:, None]
+    j = torch.arange(nb, dtype=torch.float32, device=glcm.device)[None, :]
+    contrast = (p * (i - j) ** 2).sum(dim=dims)
+    energy = (p**2).sum(dim=dims)
+    homogeneity = (p / (1.0 + torch.abs(i - j))).sum(dim=dims)
+    entropy = -(p * torch.log(torch.clamp(p, 1e-12, 1.0))).sum(dim=dims)
+    mu_i = (p * i).sum(dim=dims)
+    mu_j = (p * j).sum(dim=dims)
+    var_i = (p * (i - mu_i[..., None, None]) ** 2).sum(dim=dims)
+    var_j = (p * (j - mu_j[..., None, None]) ** 2).sum(dim=dims)
+    cov = (p * (i - mu_i[..., None, None]) * (j - mu_j[..., None, None])).sum(dim=dims)
+    corr = cov / torch.clamp(torch.sqrt(var_i * var_j), min=1e-12)
+    return torch.stack([contrast, energy, homogeneity, entropy, corr], dim=-1)
+
+
+def histogram_ref(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
+    return _one_hot(bins.reshape(*bins.shape[:-2], -1), num_bins).sum(dim=-2)
+
+
+def histogram_features_ref(hist: torch.Tensor) -> torch.Tensor:
+    """(mean, std, skewness, kurtosis) of the quantized intensity dist."""
+    nb = hist.shape[-1]
+    n = torch.clamp(hist.sum(dim=-1, keepdim=True), min=1e-12)
+    p = hist / n
+    x = torch.arange(nb, dtype=torch.float32, device=hist.device)
+    mean = (p * x).sum(dim=-1)
+    var = (p * (x - mean[..., None]) ** 2).sum(dim=-1)
+    std = torch.sqrt(torch.clamp(var, min=1e-12))
+    skew = (p * ((x - mean[..., None]) / std[..., None]) ** 3).sum(dim=-1)
+    kurt = (p * ((x - mean[..., None]) / std[..., None]) ** 4).sum(dim=-1)
+    return torch.stack([mean, std, skew, kurt], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Percentile (threshold normalisation)
+# --------------------------------------------------------------------------
+def percentile(x: torch.Tensor, q) -> torch.Tensor:
+    """``jnp.percentile(x, q)`` over all elements, default "linear" method.
+
+    One ``torch.sort`` serves every quantile in ``q`` (a number or a
+    sequence). ``torch.quantile`` is not used: it refuses inputs above 2**24
+    elements. The positions and weights follow jnp's float32 arithmetic.
+    """
+    s = torch.sort(x.reshape(-1)).values
+    qs = np.atleast_1d(np.asarray(q, np.float32)) / np.float32(100)
+    nf = np.float32(s.numel())
+    pos = qs * (nf - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    hw = (pos - low).astype(np.float32)
+    lw = (np.float32(1) - hw).astype(np.float32)
+    low = np.clip(low, 0, nf - 1).astype(np.int64)
+    high = np.clip(high, 0, nf - 1).astype(np.int64)
+
+    def dev(a):
+        return torch.as_tensor(a, device=s.device)
+
+    out = s[dev(low)] * dev(lw) + s[dev(high)] * dev(hw)
+    return out if np.ndim(q) else out[0]
