@@ -5,14 +5,22 @@
 
 Phases, each fatal on failure:
   1. check that CUDA is present; print the card's name and power limit;
-  2. build the four kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card, on the
-     main path's data and shapes (a 3x4096x4096 slide, 512 ROIs of 64x64),
-     and time both with CUDA events;
-  4. run the main path, ``analyze_tile`` at 4096^2 with the default config,
+  2. build the six kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+  3. hold each WSI kernel against its plain PyTorch version on the card, on
+     the WSI path's data and shapes (a 3x4096x4096 slide, 512 ROIs of 64x64;
+     GLCM also at 256 bins), and time both with CUDA events;
+  4. run the WSI path, ``analyze_tile`` at 4096^2 with the default config,
      with every launch counter set to 0 just before and read just after, and
      check it stage by stage against the same call with ``impl="torch"``;
-  5. print the per-kernel JSON lines, the ``kernels`` line and, last, the
+  5. hold the LM path's two kernels (flash attention, SSD scan) against
+     their plain versions at Hymba-1.5B's prefill shapes, in bfloat16 and
+     float32, and time them beside the plain versions and a library call;
+  6. run the LM path, ``launch.serve.main`` serving hymba-1.5b at full width
+     and depth in bfloat16 (random weights from a seed), with every launch
+     counter set to 0 just before and read just after;
+  7. check the LM path end to end in float32: prefill logits on the kernels
+     against the plain versions, and greedy tokens over 8 decode steps;
+  8. print the per-kernel JSON lines, the ``kernels`` line and, last, the
      ``{"ok": true, "device": ...}`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -23,19 +31,41 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores.
+# H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores, and
+# the dense bf16 tensor-core rate (the least time the card could take for the
+# LM kernels' matrix work, whatever dtype they run in).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TC_OPS_PER_S = 989e12
 
 SLIDE = dict(tiles_y=8, tiles_x=8, tile=512, seed=0)  # 3 x 4096 x 4096
 DECONV_TOL = 2e-5  # log10f vs the plain log10, as tests/test_kernels.py allows
 FEATURE_TOL = 1e-4  # feature reductions, as tests/test_wsi_pipeline.py allows
+GLCM_WIDE_BINS = 256  # the chains' largest bin count (repro/kernels/chains.py:213)
+
+# The LM path: hymba-1.5b served at full width and depth, two batches of two
+# 2048-token prompts, 32 new tokens each.
+LM_ARGV = ["--arch", "hymba-1.5b", "--requests", "4", "--batch", "2",
+           "--prompt-len", "2048", "--max-new", "32"]
+LM_PREFILLS = 2  # batches in LM_ARGV: each prefill runs every layer once
+# Kernel tolerances (rtol = atol) by dtype. float32 3e-4 and the SSD's bf16
+# 3e-2 are tests/test_kernels.py's. bf16 attention is held tighter, at about
+# an ulp of bf16 near 1 and 4x the largest error seen on an H100 (1.95e-3):
+# outputs at the path's shapes are only some 0.05 in size.
+ATTN_TOLS = {"bf16": 8e-3, "f32": 3e-4}
+SSD_TOLS = {"bf16": 3e-2, "f32": 3e-4}
+# End to end in float32: prefill logits of the kernel path against the plain
+# path. The kernels sum in another order (online softmax; the chunked SSD
+# against the step-by-step recurrence), and 32 layers carry the difference.
+E2E_LOGIT_TOL = 1e-3
+E2E_DECODE_STEPS = 8
 
 
 def fail(msg: str) -> None:
@@ -225,6 +255,20 @@ def main() -> None:
         bound=bound(bins.numel() * 4 + (k_g.numel() + k_h.numel()) * 4, 3 * bins.numel()),
     )
     del pair_idx
+    # the device-memory variant (NB > 240), on the same ROIs at 256 bins
+    wide = ref.quantize_ref(rois, GLCM_WIDE_BINS)
+    wide_g, wide_h = ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="cuda")
+    wp_g, wp_h = ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch")
+    exact(f"glcm at {GLCM_WIDE_BINS} bins", wide_g, wp_g)
+    exact(f"glcm histogram at {GLCM_WIDE_BINS} bins", wide_h, wp_h)
+    glcm_wide = dict(
+        kernel=f"glcm:nb{GLCM_WIDE_BINS}", max_abs_err=0.0,
+        kernel_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="cuda"), 20),
+        plain_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch"), 10),
+        bound_ms=bound(wide.numel() * 4 + (wide_g.numel() + wide_h.numel()) * 4,
+                       3 * wide.numel())[0],
+    )
+    del wide, wide_g, wide_h, wp_g, wp_h
     print(f"checks: {n_objects} objects in the slide, ROI batch {tuple(bins.shape)}, "
           f"fill_holes {fill_sweeps} sweeps, reconstruction {recon_sweeps} sweeps", flush=True)
 
@@ -298,12 +342,25 @@ def main() -> None:
     print("stages (s): " + json.dumps(stage))
     print(f"objects: {n_objects} in the slide, {k} analysed; features {tuple(feats.shape)}")
 
-    # -- 5. report ---------------------------------------------------------------
+    # -- 5.-7. the LM path -----------------------------------------------------
+    del rgb, minv, k_st, p_st, out, plain, seg
+    lm_rec, lm_launches = lm_phases(torch, dev, time_ms, sync, modules)
+    for name, r in lm_rec.items():
+        kernel, dname, *variant = name.split(":")
+        print(json.dumps({"kernel": name, "launches": lm_launches[":".join([kernel, *variant])],
+                          **{k: v for k, v in r.items() if k != "bound"},
+                          "bound_ms": r["bound"][0]}))
+
+    # -- 8. report ---------------------------------------------------------------
     sources = {
         "color_deconv": ("color_deconv.cu", "src/repro/kernels/color_deconv.py:30"),
         "morph_recon": ("morph_recon.cu", "src/repro/kernels/morph_recon.py:50"),
         "ccl": ("ccl.cu", "src/repro/kernels/ccl.py:51"),
         "glcm": ("glcm.cu", "src/repro/kernels/glcm.py:40"),
+        "flash_attention:swa": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
+        "flash_attention:global": ("flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:104"),
+        "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:88"),
     }
     for name, r in [*rec.items(), *((f"morph_recon:{sub}", v) for sub, v in part.items())]:
         line = {"kernel": name, "launches": launches[name.split(":")[0]],
@@ -313,6 +370,14 @@ def main() -> None:
         if "sweeps" in r:
             line["sweeps_per_call"] = r["sweeps"]
         print(json.dumps(line))
+    print(json.dumps(glcm_wide))
+    # the LM kernels' entries are their bf16 (the path's dtype) measurements;
+    # attention has one entry for the SWA layers' calls and one for the global
+    rec.update({name: lm_rec[f"{kernel}:bf16{variant}"] for name, kernel, variant in (
+        ("flash_attention:swa", "flash_attention", ":swa"),
+        ("flash_attention:global", "flash_attention", ":global"),
+        ("ssd_scan", "ssd_scan", ""))})
+    launches.update(lm_launches)
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rec[name]
@@ -328,6 +393,181 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def lm_bound(nbytes: int, nops: int) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / TC_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
+    """Phases 5-7; returns (per-variant kernel records, LM path launches)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import HybridLM
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    def flag(name: str) -> int:
+        return int(LM_ARGV[LM_ARGV.index(name) + 1])
+
+    cfg = get_config("hymba-1.5b")
+    b, t, max_new = flag("--batch"), flag("--prompt-len"), flag("--max-new")
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    h, p, n, g = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups
+    rec: dict[str, dict] = {}
+
+    # -- 5. the LM kernels against their plain versions, the path's shapes --------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qpos = torch.arange(t, device=dev)[:, None]
+    kpos = torch.arange(t, device=dev)[None, :]
+    for dname in ATTN_TOLS:
+        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+        esize = torch.empty((), dtype=dtype).element_size()
+        q = torch.randn((b, hq, t, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(dtype)
+        for lname, window in (("swa", cfg.window), ("global", None)):
+            got = ops.attention(q, k, v, window=window, impl="cuda")
+            want = ops.attention(q, k, v, window=window, impl="torch")
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = ATTN_TOLS[dname]
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention ({dname}, {lname}) disagrees with its plain version: "
+                     f"max |err| {err}")
+            if window is None:
+                lib = partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
+                              enable_gqa=True)
+            else:
+                mask = (kpos <= qpos) & (qpos - kpos < window)
+                lib = partial(F.scaled_dot_product_attention, q, k, v, attn_mask=mask,
+                              enable_gqa=True)
+            lib_err = (lib().float() - want.float()).abs().max().item()
+            pairs = sum(min(i + 1, window or t) for i in range(t))  # live (query, key) pairs
+            rec[f"flash_attention:{dname}:{lname}"] = dict(
+                max_abs_err=err, library_max_abs_err=lib_err,
+                ms=time_ms(partial(ops.attention, q, k, v, window=window, impl="cuda"), 10),
+                plain_ms=time_ms(partial(ops.attention, q, k, v, window=window, impl="torch"), 5),
+                library_ms=time_ms(lib, 10),
+                bound=lm_bound((2 * q.numel() + k.numel() + v.numel()) * esize,
+                               4 * d * pairs * b * hq),
+            )
+        del q, k, v, got, want
+
+        x = torch.randn((b, t, h, p), generator=gen, device=dev).to(dtype)
+        dt = torch.rand((b, t, h), generator=gen, device=dev) * 0.1
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+        bm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+        cm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+        dsk = torch.randn((h,), generator=gen, device=dev)
+        y, hf = ops.ssd_scan(x, dt, a, bm, cm, dsk, impl="cuda", chunk=cfg.ssm_chunk)
+        yr, hr = ops.ssd_scan(x, dt, a, bm, cm, dsk, impl="torch")
+        sync()
+        err = max((y.float() - yr.float()).abs().max().item(), (hf - hr).abs().max().item())
+        tol = SSD_TOLS[dname]
+        if not (torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
+                and torch.allclose(hf, hr, rtol=3e-4, atol=3e-4)):
+            fail(f"ssd_scan ({dname}) disagrees with its plain version: max |err| {err}")
+        rec[f"ssd_scan:{dname}"] = dict(
+            max_abs_err=err,
+            ms=time_ms(partial(ops.ssd_scan, x, dt, a, bm, cm, dsk, impl="cuda",
+                               chunk=cfg.ssm_chunk), 10),
+            plain_ms=time_ms(partial(ops.ssd_scan, x, dt, a, bm, cm, dsk, impl="torch"), 2,
+                             warmup=0),
+            library_ms=None,
+            # x in, y out, dt, B, C, a, D in, the final state out; the
+            # recurrence's 6 flops per state element per step
+            bound=lm_bound(2 * x.numel() * esize + dt.numel() * 4
+                           + 2 * bm.numel() * esize + 2 * h * 4 + hf.numel() * 4,
+                           6 * b * t * h * n * p),
+        )
+        del x, dt, a, bm, cm, dsk, y, hf, yr, hr
+    torch.cuda.empty_cache()
+    print("LM kernel checks: flash_attention and ssd_scan agree with their plain versions "
+          f"at q {(b, hq, t, d)}, k/v {(b, hkv, t, d)}, x {(b, t, h, p)}", flush=True)
+
+    # -- 6. the LM path: serve hymba-1.5b at full width and depth, bf16 -----------
+    for mod in (*wsi_modules.values(), fa_mod, ssd_mod):
+        mod.launches = 0
+    fa_mod.swa_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    served = serve_main(LM_ARGV)
+    sync()
+    wall_s = time.perf_counter() - t0
+    lm_launches = {"flash_attention:swa": fa_mod.swa_launches,
+                   "flash_attention:global": fa_mod.launches - fa_mod.swa_launches,
+                   "ssd_scan": ssd_mod.launches}
+    n_glob = cfg.num_global_layers
+    expected = {"flash_attention:swa": (cfg.num_layers - n_glob) * LM_PREFILLS,
+                "flash_attention:global": n_glob * LM_PREFILLS,
+                "ssd_scan": cfg.num_layers * LM_PREFILLS}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"LM path: serve_main {' '.join(LM_ARGV)} in {wall_s:.3f} s, launches "
+          f"{lm_launches} (expected {expected}), prefill ms per "
+          f"batch {served['prefill_ms']}, prefill {served['prefill_tok_per_s']:.1f} tok/s, "
+          f"decode {served['decode_tok_per_s']:.2f} tok/s, "
+          f"max_memory_allocated {peak} bytes", flush=True)
+    for name, count in lm_launches.items():
+        if count != expected[name]:
+            fail(f"the LM path launched {name} {count} times, not {expected[name]} "
+                 f"(a launch per layer per prefill)")
+    for toks in served["outputs"]:
+        if toks.shape != (b, t + max_new) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"served tokens: shape {toks.shape} or ids outside [0, {cfg.vocab})")
+
+    # -- 7. the LM path end to end in float32: kernels against plain versions ----
+    cfg32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+    plain32 = cfg32.replace(attn_impl="torch")
+    model = HybridLM(cfg32, device=dev, seed=0)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (b, t)),
+                             dtype=torch.int32, device=dev)
+    steps = {}
+    caches = {}
+    with torch.no_grad():
+        for name, c in (("kernels", cfg32), ("plain", plain32)):
+            sync()
+            t0 = time.perf_counter()
+            logits, caches[name] = make_prefill_step(c)(
+                model, {"tokens": prompt}, make_cache(c, b, t + E2E_DECODE_STEPS + 1, device=dev))
+            sync()
+            steps[name] = [logits[:, -1]]
+            print(f"float32 prefill ({name}) in {time.perf_counter() - t0:.3f} s", flush=True)
+        logit_err = (steps["kernels"][0] - steps["plain"][0]).abs().max().item()
+        if not torch.allclose(steps["kernels"][0], steps["plain"][0],
+                              rtol=E2E_LOGIT_TOL, atol=E2E_LOGIT_TOL):
+            fail(f"float32 prefill logits: kernels against plain max |err| {logit_err}")
+        # decode both on the plain path's greedy tokens (teacher forcing)
+        tok = torch.argmax(steps["plain"][0], dim=-1)[:, None].to(torch.int32)
+        for i in range(E2E_DECODE_STEPS):
+            for name, c in (("kernels", cfg32), ("plain", plain32)):
+                logits, caches[name] = make_decode_step(c)(model, tok, caches[name], t + i)
+                steps[name].append(logits[:, -1])
+            tok = torch.argmax(steps["plain"][-1], dim=-1)[:, None].to(torch.int32)
+    checked = differ = 0
+    for lk, lp in zip(steps["kernels"], steps["plain"]):
+        top2 = torch.topk(lp, 2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > E2E_LOGIT_TOL
+        same = torch.argmax(lk, dim=-1) == torch.argmax(lp, dim=-1)
+        checked += int(decisive.sum())
+        differ += int((decisive & ~same).sum())
+    decode_err = max((lk - lp).abs().max().item()
+                     for lk, lp in zip(steps["kernels"], steps["plain"]))
+    print(f"LM float32 end to end: prefill logits max |err| {logit_err:.3g} "
+          f"(tolerance {E2E_LOGIT_TOL}), decode logits max |err| {decode_err:.3g}; greedy "
+          f"tokens over 1 + {E2E_DECODE_STEPS} steps: {checked} decisive, {differ} differ",
+          flush=True)
+    if differ:
+        fail(f"{differ} greedy tokens differ where the top-two margin exceeds {E2E_LOGIT_TOL}")
+    del model, caches, steps
+    torch.cuda.empty_cache()
+    return rec, lm_launches
 
 
 if __name__ == "__main__":

@@ -37,6 +37,9 @@ SIGNATURES = {
     "rt_morph_recon_sweep": [P, P, P, P, I, I, P],
     "rt_ccl": [P, P, I, I, P],
     "rt_glcm": [P, P, P, I, I, I, I, P],
+    "rt_glcm_global": [P, P, P, I, I, I, I, P],
+    "rt_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
+    "rt_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, LL, P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -123,12 +126,13 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+def require(t: torch.Tensor, name: str, dtype: torch.dtype | tuple[torch.dtype, ...],
+            ndim: int) -> None:
     """Raise unless ``t`` is what a kernel takes: a contiguous CUDA tensor of
-    ``dtype`` with ``ndim`` dimensions."""
+    ``dtype`` (or of one of several) with ``ndim`` dimensions."""
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dimensions, got shape {tuple(t.shape)}")

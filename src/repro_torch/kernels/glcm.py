@@ -1,7 +1,7 @@
 """GLCM and histogram counts on the card: wrapper of ``csrc/glcm.cu``.
 
 Replaces ``repro.kernels.glcm.glcm_pallas``. The counts equal
-``ref.glcm_ref`` and ``ref.histogram_ref`` exactly.
+``ref.glcm_ref`` and ``ref.histogram_ref`` exactly, for any ``num_bins``.
 """
 from __future__ import annotations
 
@@ -11,9 +11,14 @@ from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset
 
-# Shared memory one H100 block may use (227 KB); the kernel keeps
-# (NB*NB + NB) int32 counters there, so NB <= 240.
+# Shared memory one H100 block may use (227 KB). The shared-memory variant
+# keeps (NB*NB + NB) int32 counters there, so it takes NB <= 240; above
+# that the counts go to device memory (``rt_glcm_global``).
 MAX_SHARED_BYTES = 232_448
+# Float32 holds every integer below 2^24 exactly: the device-memory variant
+# counts in float32, so a tile must have fewer pixels than that.
+MAX_EXACT_F32 = 2**24
+MAX_GRID_Y = 65_535  # the device-memory variant puts tiles on the grid's y axis
 
 
 def glcm_cuda(bins: torch.Tensor, num_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -21,15 +26,18 @@ def glcm_cuda(bins: torch.Tensor, num_bins: int) -> tuple[torch.Tensor, torch.Te
     global launches
     _build.require(bins, "glcm bins", torch.int32, 3)
     b, h, w = bins.shape
-    if (num_bins * num_bins + num_bins) * 4 > MAX_SHARED_BYTES or num_bins < 1:
-        raise ValueError(f"glcm: num_bins={num_bins} needs more shared memory than a block "
-                         f"has ({MAX_SHARED_BYTES} bytes); the kernel takes 1..240")
-    if h * w >= 2**31:
-        raise ValueError(f"glcm: {h}x{w} tiles are too large")
+    if num_bins < 1:
+        raise ValueError(f"glcm: num_bins must be at least 1, got {num_bins}")
+    shared = (num_bins * num_bins + num_bins) * 4 <= MAX_SHARED_BYTES
+    if h * w >= (2**31 if shared else MAX_EXACT_F32):
+        raise ValueError(f"glcm: {h}x{w} tiles are too large for num_bins={num_bins}")
+    if not shared and b > MAX_GRID_Y:
+        raise ValueError(f"glcm: at most {MAX_GRID_Y} tiles for num_bins={num_bins}, got {b}")
     glcm = torch.empty((b, num_bins, num_bins), dtype=torch.float32, device=bins.device)
     hist = torch.empty((b, num_bins), dtype=torch.float32, device=bins.device)
     with torch.cuda.device(bins.device):
-        code = _build.lib().rt_glcm(
+        entry = _build.lib().rt_glcm if shared else _build.lib().rt_glcm_global
+        code = entry(
             bins.data_ptr(), glcm.data_ptr(), hist.data_ptr(), b, h, w, num_bins,
             _build.stream(bins),
         )

@@ -1,4 +1,7 @@
-"""Public wrappers for the WSI main path's kernels, with dispatch on the device.
+"""Public wrappers for the port's kernels, with dispatch on the device.
+
+The WSI main path's four (color deconvolution, reconstruction, connected
+components, GLCM) and the LM path's two (flash attention, SSD scan).
 
 ``impl`` selects:
   * ``"auto"``  — the tensor's device decides: a CUDA tensor launches the
@@ -17,8 +20,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ccl import ccl_cuda
 from repro_torch.kernels.color_deconv import color_deconv_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.glcm import glcm_cuda
 from repro_torch.kernels.morph_recon import morph_recon_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -90,3 +95,45 @@ def texture_features(bins: torch.Tensor, num_bins: int, impl: str = "auto") -> t
     """(B, H, W) int bins -> (B, 9) [5 GLCM + 4 histogram] features."""
     g, h = glcm_histogram(bins, num_bins, impl=impl)
     return torch.cat([ref.glcm_features_ref(g), ref.histogram_features_ref(h)], dim=-1)
+
+
+# -- attention -----------------------------------------------------------------------
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    impl: str = "auto",
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> (B, Hq, Tq, D).
+
+    ``block_q`` and ``block_k`` are the Pallas kernel's tile sizes, kept for
+    the reference's signature; the CUDA kernel tiles 64 queries by 32 keys.
+    """
+    if _use_kernel(impl, q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return ref.attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+# -- mamba2 SSD ---------------------------------------------------------------------
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_: torch.Tensor,
+    c_: torch.Tensor,
+    d_: torch.Tensor | None = None,
+    *,
+    impl: str = "auto",
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, T, H, P), final state (B, H, N, P) float32); ``chunk`` is the
+    kernel's chunk length (the plain version steps one position at a time)."""
+    if _use_kernel(impl, x):
+        return ssd_scan_cuda(x, dt, a, b_, c_, d_, chunk=chunk)
+    return ref.ssd_scan_ref(x, dt, a, b_, c_, d_)

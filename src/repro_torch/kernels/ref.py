@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the WSI main path's kernels (the ``ref.py`` contract).
+"""Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
 Each function here computes what ``repro.kernels.ref`` computes, on any
 device. The kernel wrappers take these for CPU tensors, the CPU tests hold
@@ -284,3 +284,80 @@ def percentile(x: torch.Tensor, q) -> torch.Tensor:
 
     out = s[dev(low)] * dev(lw) + s[dev(high)] * dev(hw)
     return out if np.ndim(q) else out[0]
+
+
+# --------------------------------------------------------------------------
+# Attention (LM path)
+# --------------------------------------------------------------------------
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Softmax attention with GQA + causal + sliding window, materialized.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D); returns (B, Hq, Tq, D) in q's
+    dtype. Queries sit at absolute positions ``q_offset + arange(Tq)``. A
+    query with no visible key gives 0.
+    """
+    _, hq, tq, d = q.shape
+    tk = k.shape[2]
+    group = hq // k.shape[1]
+    kr = torch.repeat_interleave(k, group, dim=1)
+    vr = torch.repeat_interleave(v, group, dim=1)
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    qpos = q_offset + torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vr.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD scan (LM path)
+# --------------------------------------------------------------------------
+def ssd_scan_ref(
+    x: torch.Tensor,  # (B, T, H, P)
+    dt: torch.Tensor,  # (B, T, H)        softplus-ed step sizes
+    a: torch.Tensor,  # (H,)              negative decay rates (A = -exp(a_log))
+    b_: torch.Tensor,  # (B, T, G, N)
+    c_: torch.Tensor,  # (B, T, G, N)
+    d_: torch.Tensor | None = None,  # (H,) skip
+    h0: torch.Tensor | None = None,  # (B, H, N, P) initial state
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential state-space-duality scan, one step per position:
+
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * B_t x_t^T ;  y_t = C_t^T h_t (+ D x).
+    Returns (y: (B,T,H,P) in x's dtype, h_final: (B,H,N,P) float32).
+    """
+    bsz, t, h, p = x.shape
+    g, n = b_.shape[2], b_.shape[3]
+    rep = h // g
+    f32 = torch.float32
+    bh = torch.repeat_interleave(b_.to(f32), rep, dim=2)  # (B, T, H, N)
+    ch = torch.repeat_interleave(c_.to(f32), rep, dim=2)
+    dt32 = dt.to(f32)
+    decay = torch.exp(dt32 * a.to(f32)[None, None, :])  # (B, T, H)
+    dtb = dt32[..., None] * bh  # (B, T, H, N)
+    x32 = x.to(f32)
+    hcur = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device) if h0 is None
+            else h0.to(f32))
+    ys = []
+    for i in range(t):
+        hcur = decay[:, i, :, None, None] * hcur + dtb[:, i, :, :, None] * x32[:, i, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, i], hcur))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(x32)
+    if d_ is not None:
+        y = y + d_.to(f32)[None, None, :, None] * x32
+    return y.to(x.dtype), hcur

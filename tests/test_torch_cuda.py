@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from repro_torch.configs.wsi import WSIConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention, ops, ref, ssd_scan
 from repro_torch.kernels.glcm import glcm_cuda
+from repro_torch.models import HybridLM, ModelConfig
 from repro_torch.pipeline import analyze_tile, make_tile
+from repro_torch.serve import generate
 
 pytestmark = pytest.mark.cuda
 
@@ -102,7 +104,8 @@ def test_ccl_cuda_long_snake_is_one_component(dev, h, w):
 
 
 @pytest.mark.parametrize("b,h,w,nb", [(2, 16, 16, 8), (4, 24, 32, 16), (512, 64, 64, 32),
-                                      (3, 20, 20, 240)])
+                                      (3, 20, 20, 240), (3, 20, 20, 241), (5, 33, 47, 256),
+                                      (512, 64, 64, 256)])
 def test_glcm_cuda_exact(dev, b, h, w, nb):
     rng = np.random.default_rng(b * nb)
     bins = _t(rng.integers(-1, nb + 1, (b, h, w), dtype=np.int32), dev)
@@ -113,8 +116,14 @@ def test_glcm_cuda_exact(dev, b, h, w, nb):
 
 
 def test_glcm_cuda_refuses_oversized_bins(dev):
-    with pytest.raises(ValueError, match="shared memory"):
-        glcm_cuda(torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), 241)
+    """Above 240 bins the counts are float32 atomics in device memory, exact
+    only below 2^24 a count: a 4096^2 tile is refused there, not below."""
+    with pytest.raises(ValueError, match="too large"):
+        glcm_cuda(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), 241)
+    with pytest.raises(ValueError, match="at least 1"):
+        glcm_cuda(torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), 0)
+    g, h = glcm_cuda(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), 240)
+    assert float(h[0, 0]) == 4096 * 4096 and float(g[0, 0, 0]) == 4096 * 4095
 
 
 def test_analyze_tile_cuda_matches_plain(dev):
@@ -127,3 +136,98 @@ def test_analyze_tile_cuda_matches_plain(dev):
         assert torch.equal(got["labels"], want["labels"])
         assert torch.equal(got["boxes"], want["boxes"])
         torch.testing.assert_close(got["features"], want["features"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize(
+    "b,hq,hkv,tq,tk,d,causal,window,qoff",
+    [
+        (2, 4, 2, 64, 64, 32, True, None, 0),
+        (1, 8, 1, 32, 32, 16, True, 8, 0),
+        (2, 4, 4, 1, 96, 32, True, None, 95),
+        (1, 2, 2, 48, 48, 64, False, None, 0),
+        (1, 4, 2, 40, 40, 24, True, None, 0),  # ragged tiles
+        (2, 25, 5, 300, 300, 64, True, 100, 0),  # Hymba's GQA, a window
+        (1, 4, 2, 70, 130, 128, True, 50, 60),  # query offset, ragged Tk
+        (1, 2, 1, 33, 77, 64, False, 20, 0),  # window without the causal mask
+        (1, 2, 2, 4, 8, 16, True, None, -3),  # rows with no visible key
+    ],
+)
+def test_flash_attention_cuda_matches_plain(dev, dtype, tol, b, hq, hkv, tq, tk, d, causal,
+                                            window, qoff):
+    g = torch.Generator(device=dev).manual_seed(tq * tk + d)
+    q = torch.randn((b, hq, tq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, tk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, tk, d), generator=g, device=dev).to(dtype)
+    before = (flash_attention.launches, flash_attention.swa_launches)
+    got = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="cuda")
+    assert flash_attention.launches == before[0] + 1 and got.dtype == dtype
+    assert flash_attention.swa_launches == before[1] + (window is not None)
+    want = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="torch")
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_cuda_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 2, 4, 48), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.attention(q, q, q, impl="cuda")
+    q = torch.zeros((1, 3, 4, 16), device=dev)
+    k = torch.zeros((1, 2, 4, 16), device=dev)
+    with pytest.raises(ValueError, match="group"):
+        ops.attention(q, k, k, impl="cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize(
+    "b,t,h,p,g,n,chunk",
+    [(2, 64, 4, 16, 2, 8, 16), (1, 32, 2, 8, 1, 4, 8), (1, 128, 8, 32, 1, 16, 32),
+     (2, 40, 4, 16, 2, 8, 16),  # ragged: T no multiple of the chunk
+     (2, 300, 50, 64, 1, 16, 128),  # Hymba's heads, ragged last chunk
+     (1, 1, 2, 8, 1, 4, 128)],
+)
+def test_ssd_scan_cuda_matches_plain(dev, dtype, tol, b, t, h, p, g, n, chunk):
+    gen = torch.Generator(device=dev).manual_seed(t * h + p)
+    x = torch.randn((b, t, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.rand((b, t, h), generator=gen, device=dev) * 0.1
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    bm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+    d = torch.randn((h,), generator=gen, device=dev)
+    before = ssd_scan.launches
+    y, hf = ops.ssd_scan(x, dt, a, bm, cm, d, impl="cuda", chunk=chunk)
+    assert ssd_scan.launches == before + 1 and y.dtype == dtype
+    yr, hr = ops.ssd_scan(x, dt, a, bm, cm, d, impl="torch")
+    torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
+
+
+def test_ssd_scan_cuda_strong_decay_does_not_overflow(dev):
+    """exp(cum_i - cum_j) above the diagonal would overflow to inf here."""
+    b, t, h, p, g, n = 1, 128, 2, 16, 1, 8
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((b, t, h, p), generator=gen, device=dev)
+    dt = torch.full((b, t, h), 2.0, device=dev)
+    a = torch.full((h,), -20.0, device=dev)
+    bm = torch.randn((b, t, g, n), generator=gen, device=dev)
+    cm = torch.randn((b, t, g, n), generator=gen, device=dev)
+    y, hf = ops.ssd_scan(x, dt, a, bm, cm, None, impl="cuda", chunk=128)
+    yr, hr = ops.ssd_scan(x, dt, a, bm, cm, None, impl="torch")
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, yr, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
+
+
+def test_hybrid_generate_cuda_matches_plain(dev):
+    cfg = ModelConfig(name="h", family="hybrid", num_layers=3, d_model=64, num_heads=4,
+                      num_kv_heads=2, head_dim=16, d_ff=128, vocab=128, window=8,
+                      num_global_layers=1, ssm_state=8, ssm_headdim=16, ssm_chunk=8,
+                      param_dtype=torch.float32, compute_dtype=torch.float32)
+    model = HybridLM(cfg, device=dev, seed=0)
+    prompt = torch.randint(0, cfg.vocab, (2, 21), generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int32)
+    before = (flash_attention.launches, flash_attention.swa_launches, ssd_scan.launches)
+    got = generate(model, cfg, prompt, max_new=8)
+    assert flash_attention.launches == before[0] + 3 and ssd_scan.launches == before[2] + 3
+    assert flash_attention.swa_launches == before[1] + 2  # the two SWA layers
+    want = generate(model, cfg.replace(attn_impl="torch"), prompt, max_new=8)
+    assert torch.equal(got, want)

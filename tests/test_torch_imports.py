@@ -29,6 +29,13 @@ def _port_modules():
 def test_importing_every_port_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.pipeline.wsi" in mods
+    for new in ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+                "repro_torch.models.config", "repro_torch.models.spec",
+                "repro_torch.models.layers", "repro_torch.models.transformer",
+                "repro_torch.models.registry", "repro_torch.configs.registry",
+                "repro_torch.configs.hymba_1_5b", "repro_torch.serve.step",
+                "repro_torch.launch.serve", "repro_torch.convert"):
+        assert new in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -55,7 +62,10 @@ def _imported_roots(path: Path):
 
 
 def test_no_source_of_the_port_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_lm_torch.py",
+        ROOT / "examples" / "serve_lm_torch.py",
+    ]
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & {"jax", "jaxlib", "repro"})
         for f in files
@@ -84,6 +94,24 @@ def test_entry_points_raise_without_cuda():
         extract_object_rois(np.full((4, 4), -1, np.int32), np.zeros((4, 4), np.float32), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_features(np.zeros((1, 8, 8), np.float32), cfg)
+
+
+def test_lm_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import HybridLM
+    from repro_torch.serve import generate
+
+    cfg = get_config("hymba-1.5b").scaled_down()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HybridLM(cfg)
+    model = HybridLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(model, cfg, np.zeros((1, 4), np.int32), max_new=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "hymba-1.5b", "--smoke", "--requests", "1"])
 
 
 def _run_smoke(cwd: Path):

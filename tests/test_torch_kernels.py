@@ -260,7 +260,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
 
 def test_four_sources_and_their_entry_points():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["ccl.cu", "color_deconv.cu", "glcm.cu", "morph_recon.cu"]
+    assert names == ["ccl.cu", "color_deconv.cu", "flash_attention.cu", "glcm.cu",
+                     "morph_recon.cu", "ssd_scan.cu"]
     text = "".join(p.read_text() for p in _build.sources())
     for entry in _build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text
