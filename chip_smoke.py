@@ -8,7 +8,10 @@ Phases, each fatal on failure:
   2. build the six kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
   3. hold each WSI kernel against its plain PyTorch version on the card, on
      the WSI path's data and shapes (a 3x4096x4096 slide, 512 ROIs of 64x64;
-     GLCM also at 256 bins), and time both with CUDA events;
+     GLCM also at 256 bins), and time both with CUDA events; the
+     reconstruction is held bit for bit against the plain version after
+     checking that the plain version converged, and is also timed on its
+     worst case, a 1-pixel serpentine corridor;
   4. run the WSI path, ``analyze_tile`` at 4096^2 with the default config,
      with every launch counter set to 0 just before and read just after, and
      check it stage by stage against the same call with ``impl="torch"``;
@@ -49,6 +52,7 @@ SLIDE = dict(tiles_y=8, tiles_x=8, tile=512, seed=0)  # 3 x 4096 x 4096
 DECONV_TOL = 2e-5  # log10f vs the plain log10, as tests/test_kernels.py allows
 FEATURE_TOL = 1e-4  # feature reductions, as tests/test_wsi_pipeline.py allows
 GLCM_WIDE_BINS = 256  # the chains' largest bin count (repro/kernels/chains.py:213)
+CORRIDOR = (1023, 3000)  # the reconstruction's worst case: a front crossing ~24,000 tile edges
 
 # The LM path: hymba-1.5b served at full width and depth, two batches of two
 # 2048-token prompts, 32 new tokens each.
@@ -57,8 +61,11 @@ LM_ARGV = ["--arch", "hymba-1.5b", "--requests", "4", "--batch", "2",
 LM_PREFILLS = 2  # batches in LM_ARGV: each prefill runs every layer once
 # Kernel tolerances (rtol = atol) by dtype. float32 3e-4 and the SSD's bf16
 # 3e-2 are tests/test_kernels.py's. bf16 attention is held tighter, at about
-# an ulp of bf16 near 1 and 4x the largest error seen on an H100 (1.95e-3):
-# outputs at the path's shapes are only some 0.05 in size.
+# an ulp of bf16 near 1: outputs at the path's shapes are only some 0.05 in
+# size, but the first rows see few keys and reach |y| in [1, 2). The
+# tensor-core instance rounds P to bf16 before P V, as SDPA does; on an H100
+# both are 7.81e-3 from the plain version there (one bf16 ulp, inside
+# atol + rtol*|y|), where the float32-P CUDA-core instance was 1.95e-3.
 ATTN_TOLS = {"bf16": 8e-3, "f32": 3e-4}
 SSD_TOLS = {"bf16": 3e-2, "f32": 3e-4}
 # End to end in float32: prefill logits of the kernel path against the plain
@@ -174,19 +181,40 @@ def main() -> None:
             n_bad = int((a != b).sum()) if a.shape == b.shape else -1
             fail(f"{name} disagrees with its plain version ({n_bad} elements differ)")
 
+    def reset_recon_counts() -> None:
+        mr_mod.launches = mr_mod.rounds = mr_mod.tile_visits = 0
+
+    def recon_stats() -> dict:
+        """The counts of the one reconstruction call since the last reset."""
+        return dict(launches_per_call=mr_mod.launches, rounds_per_call=mr_mod.rounds,
+                    tile_visits=mr_mod.tile_visits)
+
+    def recon_bound(stats: dict) -> tuple[float, str]:
+        # marker + mask in, the result out; a tile visit does at least one
+        # local round of 4 passes, 2 min/max a pixel each
+        return bound(3 * hw * 4, 8 * mr_mod.TILE**2 * stats["tile_visits"])
+
+    def converged(name: str, p: torch.Tensor, mask_: torch.Tensor) -> None:
+        if not torch.equal(ref.morph_recon_sweep_ref(p, mask_), p):
+            fail(f"the plain {name} did not converge within its max_iters; the comparison is void")
+
     # fill holes (reconstruction kernel on the complement)
-    mr_mod.launches = 0
+    reset_recon_counts()
     k_fill = ops.fill_holes(raw, impl="cuda")
-    fill_sweeps = mr_mod.launches
-    p_fill = ops.fill_holes(raw, impl="torch")
+    fill_stats = recon_stats()
+    seed, inv = ref.fill_holes_seed(raw)
+    p_rec = ref.morph_recon_ref(seed, inv)
+    converged("fill_holes reconstruction", p_rec, inv)
+    p_fill = 1.0 - p_rec
     exact("fill_holes", k_fill, p_fill)
+    del seed, inv, p_rec
     part: dict[str, dict] = {}  # the two reconstruction calls of the main path
     part["fill_holes"] = dict(
-        max_abs_err=0.0, sweeps=fill_sweeps,
+        max_abs_err=0.0, **fill_stats,
         ms=time_ms(lambda: ops.fill_holes(raw, impl="cuda"), 10),
         plain_ms=time_ms(lambda: ops.fill_holes(raw, impl="torch"), 2, warmup=0),
         library_ms=None,
-        bound=bound(3 * hw * 4, fill_sweeps * 8 * hw),
+        bound=recon_bound(fill_stats),
     )
 
     # reconstruction opening
@@ -196,25 +224,40 @@ def main() -> None:
         torch.roll(filled, 1, -1) * torch.roll(filled, -1, -1)
         * torch.roll(filled, 1, -2) * torch.roll(filled, -1, -2),
     )
-    mr_mod.launches = 0
+    reset_recon_counts()
     k_open = ops.morph_recon(marker, filled, impl="cuda")
-    recon_sweeps = mr_mod.launches
+    open_stats = recon_stats()
     p_open = ops.morph_recon(marker, filled, impl="torch")
+    converged("reconstruction opening", p_open, filled)
     exact("morph_recon", k_open, p_open)
     part["opening"] = dict(
-        max_abs_err=0.0, sweeps=recon_sweeps,
+        max_abs_err=0.0, **open_stats,
         ms=time_ms(lambda: ops.morph_recon(marker, filled, impl="cuda"), 10),
         plain_ms=time_ms(lambda: ops.morph_recon(marker, filled, impl="torch"), 2, warmup=0),
         library_ms=None,
-        bound=bound(3 * hw * 4, recon_sweeps * 8 * hw),
+        bound=recon_bound(open_stats),
     )
     rec["morph_recon"] = dict(  # per tile: fill-holes + opening
         max_abs_err=0.0,
         ms=part["fill_holes"]["ms"] + part["opening"]["ms"],
         plain_ms=part["fill_holes"]["plain_ms"] + part["opening"]["plain_ms"],
         library_ms=None,
-        bound=bound(2 * 3 * hw * 4, (fill_sweeps + recon_sweeps) * 8 * hw),
+        bound=bound(2 * 3 * hw * 4, 8 * mr_mod.TILE**2
+                    * (fill_stats["tile_visits"] + open_stats["tile_visits"])),
     )
+
+    # the reconstruction's worst case: a front that walks a 1-pixel corridor
+    # through the whole image; seeded at its start, it fills the corridor
+    corridor = torch.as_tensor(serpentine(*CORRIDOR), dtype=torch.float32, device=dev)
+    seed = torch.zeros_like(corridor)
+    seed[0, 0] = 1.0
+    reset_recon_counts()
+    exact("morph_recon on the corridor", ops.morph_recon(seed, corridor, impl="cuda"), corridor)
+    corridor_rec = dict(
+        kernel="morph_recon:corridor", shape=CORRIDOR, max_abs_err=0.0, **recon_stats(),
+        kernel_ms=time_ms(lambda: ops.morph_recon(seed, corridor, impl="cuda"), 3),
+    )
+    del corridor, seed
 
     # connected components
     mask = (p_open > 0.5).to(torch.int32)
@@ -261,27 +304,36 @@ def main() -> None:
     wp_g, wp_h = ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch")
     exact(f"glcm at {GLCM_WIDE_BINS} bins", wide_g, wp_g)
     exact(f"glcm histogram at {GLCM_WIDE_BINS} bins", wide_h, wp_h)
+    wide_idx = (
+        torch.arange(b, device=dev)[:, None, None] * GLCM_WIDE_BINS**2
+        + wide[:, :, :-1].long() * GLCM_WIDE_BINS + wide[:, :, 1:].long()
+    ).reshape(-1)
     glcm_wide = dict(
         kernel=f"glcm:nb{GLCM_WIDE_BINS}", max_abs_err=0.0,
         kernel_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="cuda"), 20),
         plain_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch"), 10),
+        library_ms=time_ms(
+            lambda: torch.bincount(wide_idx, minlength=b * GLCM_WIDE_BINS**2), 10),
         bound_ms=bound(wide.numel() * 4 + (wide_g.numel() + wide_h.numel()) * 4,
                        3 * wide.numel())[0],
     )
-    del wide, wide_g, wide_h, wp_g, wp_h
+    del wide, wide_g, wide_h, wp_g, wp_h, wide_idx
     print(f"checks: {n_objects} objects in the slide, ROI batch {tuple(bins.shape)}, "
-          f"fill_holes {fill_sweeps} sweeps, reconstruction {recon_sweeps} sweeps", flush=True)
+          f"fill_holes {fill_stats}, reconstruction {open_stats}, corridor {CORRIDOR} "
+          f"{corridor_rec['rounds_per_call']} rounds", flush=True)
 
     # -- 4. the main path --------------------------------------------------------
     for mod in modules.values():
         mod.launches = 0
+    reset_recon_counts()
     sync()
     t0 = time.perf_counter()
     out = analyze_tile(rgb, cfg)
     sync()
     wall_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in modules.items()}
-    print(f"main path: analyze_tile {tuple(rgb.shape)} in {wall_s:.3f} s, launches {launches}")
+    print(f"main path: analyze_tile {tuple(rgb.shape)} in {wall_s:.3f} s, launches {launches}, "
+          f"reconstruction rounds {mr_mod.rounds}, tile visits {mr_mod.tile_visits}")
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched the {name} kernel")
@@ -367,9 +419,10 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "kernel_ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": r["bound"][0]}
-        if "sweeps" in r:
-            line["sweeps_per_call"] = r["sweeps"]
+        line.update({k: r[k] for k in ("launches_per_call", "rounds_per_call", "tile_visits")
+                     if k in r})
         print(json.dumps(line))
+    print(json.dumps(corridor_rec))
     print(json.dumps(glcm_wide))
     # the LM kernels' entries are their bf16 (the path's dtype) measurements;
     # attention has one entry for the SWA layers' calls and one for the global
@@ -389,10 +442,22 @@ def main() -> None:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
+        if name.startswith("flash_attention"):
+            kernels[-1]["instance_launches"] = launches["flash_attention:instances"][
+                name.split(":")[1]]
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def serpentine(h: int, w: int) -> np.ndarray:
+    """A 1-pixel corridor along every even row, turning at alternate ends."""
+    m = np.zeros((h, w), bool)
+    m[::2, :] = True
+    for r in range(1, h, 2):
+        m[r, -1 if (r // 2) % 2 == 0 else 0] = True
+    return m
 
 
 def lm_bound(nbytes: int, nops: int) -> tuple[float, str]:
@@ -450,7 +515,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
             lib_err = (lib().float() - want.float()).abs().max().item()
             pairs = sum(min(i + 1, window or t) for i in range(t))  # live (query, key) pairs
             rec[f"flash_attention:{dname}:{lname}"] = dict(
-                max_abs_err=err, library_max_abs_err=lib_err,
+                instance=fa_mod.instance(dtype, d), max_abs_err=err, library_max_abs_err=lib_err,
                 ms=time_ms(partial(ops.attention, q, k, v, window=window, impl="cuda"), 10),
                 plain_ms=time_ms(partial(ops.attention, q, k, v, window=window, impl="torch"), 5),
                 library_ms=time_ms(lib, 10),
@@ -492,9 +557,13 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
           f"at q {(b, hq, t, d)}, k/v {(b, hkv, t, d)}, x {(b, t, h, p)}", flush=True)
 
     # -- 6. the LM path: serve hymba-1.5b at full width and depth, bf16 -----------
-    for mod in (*wsi_modules.values(), fa_mod, ssd_mod):
+    def reset_attention_counts() -> None:
+        fa_mod.launches = fa_mod.swa_launches = 0
+        fa_mod.instance_launches.update(dict.fromkeys(fa_mod.INSTANCES, 0))
+
+    for mod in (*wsi_modules.values(), ssd_mod):
         mod.launches = 0
-    fa_mod.swa_launches = 0
+    reset_attention_counts()
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
@@ -504,6 +573,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
     lm_launches = {"flash_attention:swa": fa_mod.swa_launches,
                    "flash_attention:global": fa_mod.launches - fa_mod.swa_launches,
                    "ssd_scan": ssd_mod.launches}
+    path_instance = fa_mod.instance(cfg.compute_dtype, d)
     n_glob = cfg.num_global_layers
     expected = {"flash_attention:swa": (cfg.num_layers - n_glob) * LM_PREFILLS,
                 "flash_attention:global": n_glob * LM_PREFILLS,
@@ -518,6 +588,15 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         if count != expected[name]:
             fail(f"the LM path launched {name} {count} times, not {expected[name]} "
                  f"(a launch per layer per prefill)")
+    if fa_mod.instance_launches[path_instance] != fa_mod.launches:
+        fail(f"the bf16 LM path launched attention instances {fa_mod.instance_launches}, "
+             f"not only {path_instance}")
+    # one instance took every call, so the per-layer-kind split is exact
+    lm_launches["flash_attention:instances"] = {
+        kind: {**dict.fromkeys(fa_mod.INSTANCES, 0),
+               path_instance: lm_launches[f"flash_attention:{kind}"]}
+        for kind in ("swa", "global")}
+    print(f"LM path attention instances: {fa_mod.instance_launches}", flush=True)
     for toks in served["outputs"]:
         if toks.shape != (b, t + max_new) or toks.min() < 0 or toks.max() >= cfg.vocab:
             fail(f"served tokens: shape {toks.shape} or ids outside [0, {cfg.vocab})")
@@ -530,6 +609,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
                              dtype=torch.int32, device=dev)
     steps = {}
     caches = {}
+    reset_attention_counts()
     with torch.no_grad():
         for name, c in (("kernels", cfg32), ("plain", plain32)):
             sync()
@@ -539,6 +619,9 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
             sync()
             steps[name] = [logits[:, -1]]
             print(f"float32 prefill ({name}) in {time.perf_counter() - t0:.3f} s", flush=True)
+        if fa_mod.instance_launches != {"tensor_core": 0, "cuda_core": cfg.num_layers}:
+            fail(f"the float32 prefill launched attention instances {fa_mod.instance_launches}, "
+                 f"not the CUDA-core kernel once a layer")
         logit_err = (steps["kernels"][0] - steps["plain"][0]).abs().max().item()
         if not torch.allclose(steps["kernels"][0], steps["plain"][0],
                               rtol=E2E_LOGIT_TOL, atol=E2E_LOGIT_TOL):

@@ -34,11 +34,12 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int).
 SIGNATURES = {
     "rt_color_deconv": [P, P, P, LL, F, P],
-    "rt_morph_recon_sweep": [P, P, P, P, I, I, P],
+    "rt_morph_recon_rounds": [P, P, P, P, I, I, I, I, P],
     "rt_ccl": [P, P, I, I, P],
     "rt_glcm": [P, P, P, I, I, I, I, P],
     "rt_glcm_global": [P, P, P, I, I, I, I, P],
     "rt_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
+    "rt_flash_attention_tc": [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P],
     "rt_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, LL, P],
 }
 

@@ -2,6 +2,11 @@
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas``. The plain
 version is ``ref.attention_ref``; ``ops.attention`` picks between them.
+
+The source holds two instances of the kernel, and :func:`instance` picks one
+by dtype and head_dim: bf16 at D = 64 or 128 runs on the tensor cores
+(``mma.sync`` in bf16, K and V staged as bf16), everything else on the CUDA
+cores in float32 (which holds float32's 3e-4; TF32 would not).
 """
 from __future__ import annotations
 
@@ -13,9 +18,21 @@ from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset
 swa_launches = 0  # of those, launches with a sliding window
+INSTANCES = ("tensor_core", "cuda_core")
+instance_launches = dict.fromkeys(INSTANCES, 0)  # of those, launches per instance
 
-HEAD_DIMS = (16, 24, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 24, 32, 64, 128)  # the CUDA-core kernel's template instances
+TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's (bf16 only)
 DTYPES = (torch.float32, torch.bfloat16)
+BLOCK_Q = 64  # queries per block in both instances
+MAX_Q_BLOCKS = 65535  # the grid's y extent
+
+
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel instance that takes a call of this dtype and head_dim."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def flash_attention_cuda(
@@ -50,15 +67,24 @@ def flash_attention_cuda(
         raise ValueError(f"attention: window must be >= 0, got {window}")
     if max(b * hq, tq, tk, abs(q_offset) + tq + tk) >= 2**31 or q.numel() >= 2**62:
         raise ValueError(f"attention: shapes {tuple(q.shape)}, {tuple(k.shape)} are too large")
+    if -(-tq // BLOCK_Q) > MAX_Q_BLOCKS:
+        raise ValueError(f"attention: Tq {tq} needs more than {MAX_Q_BLOCKS} query blocks")
+    which = instance(q.dtype, d)
+    if which == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention: the tensor-core kernel needs 16-byte aligned q, k, v")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
+    common = (b, hq, hkv, tq, tk, d)
+    masks = (int(causal), -1 if window is None else window, q_offset, _build.stream(q))
     with torch.cuda.device(q.device):
-        code = _build.lib().rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, tq, tk, d, int(q.dtype == torch.bfloat16), scale, int(causal),
-            -1 if window is None else window, q_offset, _build.stream(q),
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if which == "tensor_core":
+            code = _build.lib().rt_flash_attention_tc(*ptrs, *common, scale, *masks)
+        else:
+            code = _build.lib().rt_flash_attention(
+                *ptrs, *common, int(q.dtype == torch.bfloat16), scale, *masks)
         launches += 1
         swa_launches += window is not None
-    _build.check(code, "flash_attention")
+        instance_launches[which] += 1
+    _build.check(code, f"flash_attention ({which})")
     return out

@@ -52,18 +52,25 @@ def color_deconv(rgb: torch.Tensor, minv: torch.Tensor, impl: str = "auto") -> t
 def morph_recon(
     marker: torch.Tensor, mask: torch.Tensor, impl: str = "auto", max_iters: int = 128
 ) -> torch.Tensor:
+    """Reconstruction by dilation of ``marker`` under ``mask`` (4-connected).
+
+    The CUDA kernel (a tiled wavefront) always reaches the fixed point and
+    does not read ``max_iters``; the plain version stops after ``max_iters``
+    sweeps.
+    """
     if _use_kernel(impl, mask):
-        return morph_recon_cuda(marker, mask, max_iters=max_iters)
+        return morph_recon_cuda(marker, mask)
     return ref.morph_recon_ref(marker, mask, max_iters=max_iters)
 
 
 def fill_holes(mask01: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Border-seeded reconstruction of the complement, on the reconstruction
-    kernel for a CUDA tensor (capped as ``ref.fill_holes_ref`` is)."""
+    kernel (to the fixed point) for a CUDA tensor; the plain version is capped
+    as ``ref.fill_holes_ref`` is."""
     if not _use_kernel(impl, mask01):
         return ref.fill_holes_ref(mask01)
     marker, inv = ref.fill_holes_seed(mask01)
-    return 1.0 - morph_recon_cuda(marker, inv, max_iters=ref.REF_MAX_ITERS)
+    return 1.0 - morph_recon_cuda(marker, inv)
 
 
 # -- connected components ----------------------------------------------------------
@@ -113,7 +120,8 @@ def attention(
     """q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> (B, Hq, Tq, D).
 
     ``block_q`` and ``block_k`` are the Pallas kernel's tile sizes, kept for
-    the reference's signature; the CUDA kernel tiles 64 queries by 32 keys.
+    the reference's signature; the CUDA kernels tile 64 queries by 64 keys
+    (tensor cores) or 32 keys (CUDA cores).
     """
     if _use_kernel(impl, q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -9,7 +9,8 @@ Reconstruction and min-label propagation are written as the sequential
 1-D recurrences that the reference evaluates with ``associative_scan``.
 min and max only select values and never round, so every directional pass,
 and so every sweep, equals the reference's bit for bit, and ``max_iters``
-counts the same sweeps.
+counts the same sweeps. The CUDA kernels of both run to the fixed point
+without a cap, so they equal these only where the cap did not bind.
 """
 from __future__ import annotations
 

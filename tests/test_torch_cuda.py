@@ -43,16 +43,83 @@ def test_color_deconv_cuda(dev, h, w):
     assert float(white.abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("max_iters", [1, 2, 128])
-@pytest.mark.parametrize("h,w", [(32, 48), (97, 64), (200, 333)])
-def test_morph_recon_cuda_iterate_for_iterate(dev, h, w, max_iters):
-    rng = np.random.default_rng(h + w + max_iters)
-    mask = (rng.random((h, w)) > 0.35).astype(np.float32)
-    marker = (rng.random((h, w)) * (rng.random((h, w)) > 0.97)).astype(np.float32) * mask
+def _converged_plain(marker, mask):
+    """The plain reconstruction run to its fixed point, checked to be one."""
+    want = ops.morph_recon(marker, mask, impl="torch", max_iters=100_000)
+    converged = torch.equal(ref.morph_recon_sweep_ref(want, mask), want)
+    assert converged, "the plain version did not converge"
+    return want
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("h,w", [(32, 48), (97, 64), (200, 333), (257, 131)])
+def test_morph_recon_cuda_reaches_the_fixed_point(dev, h, w, seed):
+    """The wavefront kernel equals the converged plain version bit for bit,
+    on sizes that are no multiple of its 64x64 tile, and is itself a fixed
+    point of the plain sweep."""
+    rng = np.random.default_rng(h + w + seed)
+    mask = (rng.random((h, w)) > 0.35).astype(np.float32) * rng.random((h, w), dtype=np.float32)
+    marker = (rng.random((h, w)) * (rng.random((h, w)) > 0.97)).astype(np.float32)
     mk, ms = _t(marker, dev), _t(mask, dev)
-    got = ops.morph_recon(mk, ms, impl="cuda", max_iters=max_iters)
-    want = ops.morph_recon(mk, ms, impl="torch", max_iters=max_iters)
-    assert torch.equal(got, want)
+    got = ops.morph_recon(mk, ms, impl="cuda")
+    assert torch.equal(got, _converged_plain(mk, ms))
+    assert torch.equal(ref.morph_recon_sweep_ref(got, ms), got)
+
+
+def test_morph_recon_cuda_ignores_max_iters(dev):
+    """The kernel has no cap: max_iters changes the plain result, not the card's."""
+    rng = np.random.default_rng(5)
+    mask = (rng.random((97, 64)) > 0.3).astype(np.float32)
+    marker = np.zeros_like(mask)
+    marker[-1, -1] = 1.0
+    mk, ms = _t(marker, dev), _t(mask, dev)
+    capped = ops.morph_recon(mk, ms, impl="torch", max_iters=1)
+    full = _converged_plain(mk, ms)
+    assert not torch.equal(capped, full)  # one sweep does not reach the fixed point here
+    for max_iters in (1, 2, 128):
+        assert torch.equal(ops.morph_recon(mk, ms, impl="cuda", max_iters=max_iters), full)
+
+
+def _serpentine_path(h, w):
+    """Pixels of the serpentine corridor (``_snake``) in order along it."""
+    ys, xs = [], []
+    for r in range(0, h, 2):
+        cols = np.arange(w) if (r // 2) % 2 == 0 else np.arange(w - 1, -1, -1)
+        ys.append(np.full(w, r))
+        xs.append(cols)
+        if r + 1 < h:
+            ys.append(np.array([r + 1]))
+            xs.append(np.array([w - 1 if (r // 2) % 2 == 0 else 0]))
+    return np.concatenate(ys), np.concatenate(xs)
+
+
+def test_morph_recon_cuda_serpentine_corridor(dev):
+    """The worst case: a 1-pixel corridor that crosses some 24,000 tile edges
+    from one end to the other. Seeded at its start, the reconstruction along
+    it is the running minimum of the mask, and zero off it."""
+    h, w = 1023, 3000
+    ys, xs = _serpentine_path(h, w)
+    vals = (0.5 + 0.5 * np.random.default_rng(9).random(ys.size)).astype(np.float32)
+    mask = np.zeros((h, w), np.float32)
+    mask[ys, xs] = vals
+    assert np.array_equal(mask != 0, _snake(h, w))
+    marker = np.zeros_like(mask)
+    marker[0, 0] = 1.0
+    want = np.zeros_like(mask)
+    want[ys, xs] = np.minimum.accumulate(vals)
+    ms = _t(mask, dev)
+    got = ops.morph_recon(_t(marker, dev), ms, impl="cuda")
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(ref.morph_recon_sweep_ref(got, ms), got)
+
+
+def test_fill_holes_cuda_full_tile(dev):
+    """Fill-holes at the main path's 4096^2 against the converged plain version."""
+    rng = np.random.default_rng(4096)
+    x = _t((rng.random((4096, 4096)) < 0.55).astype(np.float32), dev)
+    got = ops.fill_holes(x, impl="cuda")
+    seed, inv = ref.fill_holes_seed(x)
+    assert torch.equal(got, 1.0 - _converged_plain(seed, inv))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -159,12 +226,49 @@ def test_flash_attention_cuda_matches_plain(dev, dtype, tol, b, hq, hkv, tq, tk,
     q = torch.randn((b, hq, tq, d), generator=g, device=dev).to(dtype)
     k = torch.randn((b, hkv, tk, d), generator=g, device=dev).to(dtype)
     v = torch.randn((b, hkv, tk, d), generator=g, device=dev).to(dtype)
-    before = (flash_attention.launches, flash_attention.swa_launches)
+    which = flash_attention.instance(dtype, d)
+    assert which == "cuda_core" or dtype == torch.bfloat16  # float32 stays on the CUDA cores
+    before = (flash_attention.launches, flash_attention.swa_launches,
+              flash_attention.instance_launches[which])
     got = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="cuda")
     assert flash_attention.launches == before[0] + 1 and got.dtype == dtype
     assert flash_attention.swa_launches == before[1] + (window is not None)
+    assert flash_attention.instance_launches[which] == before[2] + 1
     want = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="torch")
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,tq,tk,d,causal,window,qoff",
+    [
+        (2, 25, 5, 300, 300, 64, True, 100, 0),  # Hymba's GQA, a window, ragged tiles
+        (1, 25, 5, 256, 256, 64, True, None, 0),  # whole tiles: the unmasked path
+        (1, 4, 4, 256, 320, 128, True, None, 64),  # D = 128, whole tiles, an offset
+        (1, 4, 2, 70, 130, 128, True, 50, 60),  # D = 128, query offset, ragged Tk
+        (1, 2, 1, 33, 77, 64, False, 20, 0),  # window without the causal mask
+        (1, 4, 2, 100, 200, 64, False, None, 0),  # neither mask
+        (1, 2, 2, 70, 40, 64, True, None, -50),  # 50 rows with no visible key
+        (1, 2, 2, 9, 9, 128, True, 4, -6),  # offset and window: rows see 0 to 3 keys
+        (2, 25, 5, 1, 2049, 64, True, 1024, 2048),  # Tq = 1 behind a full window
+        (1, 5, 1, 1, 77, 128, True, None, 76),  # Tq = 1, D = 128
+    ],
+)
+def test_flash_attention_tensor_cores_match_plain(dev, b, hq, hkv, tq, tk, d, causal, window,
+                                                   qoff):
+    """bf16 at D = 64 and 128 runs on the tensor-core instance, held at the
+    LM path's bf16 tolerance; rows that see no key give 0."""
+    g = torch.Generator(device=dev).manual_seed(tq * tk + d + hq)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device=dev).to(torch.bfloat16)
+               for h, t in ((hq, tq), (hkv, tk), (hkv, tk)))
+    before = dict(flash_attention.instance_launches)
+    got = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="cuda")
+    assert flash_attention.instance_launches == {
+        **before, "tensor_core": before["tensor_core"] + 1}
+    want = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="torch")
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3, atol=8e-3)
+    qpos = qoff + torch.arange(tq, device=dev)
+    blind = qpos < 0 if causal else torch.zeros_like(qpos, dtype=torch.bool)
+    assert bool((got[:, :, blind] == 0).all())
 
 
 def test_flash_attention_cuda_refuses_what_it_does_not_take(dev):
@@ -175,6 +279,10 @@ def test_flash_attention_cuda_refuses_what_it_does_not_take(dev):
     k = torch.zeros((1, 2, 4, 16), device=dev)
     with pytest.raises(ValueError, match="group"):
         ops.attention(q, k, k, impl="cuda")
+    flat = torch.zeros(2 * 4 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(1, 2, 4, 64)  # 2 bytes off the allocation
+    with pytest.raises(ValueError, match="aligned"):
+        ops.attention(q, q, q, impl="cuda")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4), (torch.bfloat16, 3e-2)])

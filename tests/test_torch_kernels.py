@@ -101,6 +101,36 @@ def test_morph_recon_matches_pallas_at_fixed_point(h, w):
     np.testing.assert_array_equal(got, pallas)
 
 
+def serpentine(h, w):
+    """A 1-pixel corridor that runs along every even row and turns at
+    alternate ends: one path through the whole image."""
+    m = np.zeros((h, w), bool)
+    m[::2, :] = True
+    for r in range(1, h, 2):
+        m[r, -1 if (r // 2) % 2 == 0 else 0] = True
+    return m
+
+
+@pytest.mark.parametrize("block", [32, 48])
+def test_morph_recon_long_corridor_fixed_point(block):
+    """A front that must walk a 96x96 serpentine from one end: the plain
+    version run to convergence equals the JAX reference and the Pallas
+    kernel at their fixed point. This is the card tests' worst-case oracle."""
+    rng = np.random.default_rng(block)
+    corridor = serpentine(96, 96)
+    mask = corridor.astype(np.float32) * (0.5 + 0.5 * rng.random((96, 96), dtype=np.float32))
+    marker = np.zeros_like(mask)
+    marker[0, 0] = 1.0
+    got = ref.morph_recon_ref(_t(marker), _t(mask), max_iters=10_000)
+    assert torch.equal(ref.morph_recon_sweep_ref(got, _t(mask)), got)  # converged
+    assert bool((got.numpy()[corridor] > 0).all())  # the front reached the far end
+    want = j_morph_recon_ref(jnp.asarray(marker), jnp.asarray(mask), max_iters=10_000)
+    np.testing.assert_array_equal(got.numpy(), want)
+    pallas = morph_recon_pallas(jnp.asarray(marker), jnp.asarray(mask), max_iters=10_000,
+                                block_h=block, block_w=block, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
 def test_morph_recon_sweep_matches_reference():
     marker, mask = _recon_inputs(24, 40, 3)
     got = ref.morph_recon_sweep_ref(_t(marker), _t(mask)).numpy()

@@ -14,7 +14,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda, instance
 from repro_torch.kernels.ssd_scan import smem_bytes, ssd_scan_cuda
 
 
@@ -146,6 +146,20 @@ def test_ssd_scan_bf16_keeps_dtypes():
 def test_ssd_shared_memory_at_the_path_shape():
     """The main path's chunk 128, P 64, N 16 fits one H100 block."""
     assert smem_bytes(128, 64, 16) <= 232_448 < smem_bytes(256, 64, 16)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,want",
+    [(torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+     (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 24, "cuda_core"),
+     (torch.bfloat16, 32, "cuda_core"), (torch.float32, 64, "cuda_core"),
+     (torch.float32, 128, "cuda_core"), (torch.float32, 16, "cuda_core")],
+)
+def test_attention_instance_routing(dtype, d, want):
+    """bf16 at D = 64 and 128 takes the tensor-core kernel; float32 (held at
+    3e-4, which TF32 would not hold) and the small head dims keep the CUDA
+    cores."""
+    assert instance(dtype, d) == want
 
 
 # ---------------------------------------------------------------------------
