@@ -18,9 +18,11 @@ Phases, each fatal on failure:
   5. hold the LM path's two kernels (flash attention, SSD scan) against
      their plain versions at Hymba-1.5B's prefill shapes, in bfloat16 and
      float32, and time them beside the plain versions and a library call;
+     the SSD scan's three phases are also timed one by one;
   6. run the LM path, ``launch.serve.main`` serving hymba-1.5b at full width
      and depth in bfloat16 (random weights from a seed), with every launch
-     counter set to 0 just before and read just after;
+     counter set to 0 just before and read just after, and check that every
+     attention and SSD call took its tensor-core instance;
   7. check the LM path end to end in float32: prefill logits on the kernels
      against the plain versions, and greedy tokens over 8 decode steps;
   8. print the per-kernel JSON lines, the ``kernels`` line and, last, the
@@ -73,6 +75,7 @@ SSD_TOLS = {"bf16": 3e-2, "f32": 3e-4}
 # against the step-by-step recurrence), and 32 layers carry the difference.
 E2E_LOGIT_TOL = 1e-3
 E2E_DECODE_STEPS = 8
+SSD_PHASE_SLEEP_CYCLES = 2_000_000  # about 1 ms of device time ahead of the phases
 
 
 def fail(msg: str) -> None:
@@ -445,6 +448,9 @@ def main() -> None:
         if name.startswith("flash_attention"):
             kernels[-1]["instance_launches"] = launches["flash_attention:instances"][
                 name.split(":")[1]]
+        if name == "ssd_scan":
+            kernels[-1]["instance_launches"] = launches["ssd_scan:instances"]
+            kernels[-1]["kernel_launches"] = launches["ssd_scan:kernel_launches"]
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -463,6 +469,23 @@ def serpentine(h: int, w: int) -> np.ndarray:
 def lm_bound(nbytes: int, nops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / TC_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_phase_ms(torch, ssd_mod, args, chunk: int, reps: int) -> dict[str, float]:
+    """Median CUDA-event time of each of the SSD scan's phases over ``reps``
+    calls, after one warm-up call. Each call is queued behind a device sleep,
+    so the host has enqueued all three launches before the first runs and
+    the events time the device, not the host's launch gaps."""
+    ssd_mod.ssd_scan_cuda(*args, chunk=chunk)
+    times = {name: [] for name in ssd_mod.PHASES}
+    for _ in range(reps):
+        events: list = []
+        torch.cuda._sleep(SSD_PHASE_SLEEP_CYCLES)
+        ssd_mod.ssd_scan_cuda(*args, chunk=chunk, events=events)
+        events[-1].synchronize()
+        for name, e0, e1 in zip(ssd_mod.PHASES, events, events[1:]):
+            times[name].append(e0.elapsed_time(e1))
+    return {name: float(np.median(v)) for name, v in times.items()}
 
 
 def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
@@ -530,7 +553,9 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         bm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
         cm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
         dsk = torch.randn((h,), generator=gen, device=dev)
+        before = ssd_mod.kernel_launches
         y, hf = ops.ssd_scan(x, dt, a, bm, cm, dsk, impl="cuda", chunk=cfg.ssm_chunk)
+        per_call = ssd_mod.kernel_launches - before
         yr, hr = ops.ssd_scan(x, dt, a, bm, cm, dsk, impl="torch")
         sync()
         err = max((y.float() - yr.float()).abs().max().item(), (hf - hr).abs().max().item())
@@ -538,8 +563,10 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         if not (torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
                 and torch.allclose(hf, hr, rtol=3e-4, atol=3e-4)):
             fail(f"ssd_scan ({dname}) disagrees with its plain version: max |err| {err}")
+        phase_ms = ssd_phase_ms(torch, ssd_mod, (x, dt, a, bm, cm, dsk), cfg.ssm_chunk, 10)
         rec[f"ssd_scan:{dname}"] = dict(
-            max_abs_err=err,
+            instance=ssd_mod.instance(dtype, n, p), kernel_launches=per_call,
+            phase_ms=phase_ms, max_abs_err=err,
             ms=time_ms(partial(ops.ssd_scan, x, dt, a, bm, cm, dsk, impl="cuda",
                                chunk=cfg.ssm_chunk), 10),
             plain_ms=time_ms(partial(ops.ssd_scan, x, dt, a, bm, cm, dsk, impl="torch"), 2,
@@ -561,9 +588,14 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         fa_mod.launches = fa_mod.swa_launches = 0
         fa_mod.instance_launches.update(dict.fromkeys(fa_mod.INSTANCES, 0))
 
-    for mod in (*wsi_modules.values(), ssd_mod):
+    def reset_ssd_counts() -> None:
+        ssd_mod.launches = ssd_mod.kernel_launches = 0
+        ssd_mod.instance_launches.update(dict.fromkeys(ssd_mod.INSTANCES, 0))
+
+    for mod in wsi_modules.values():
         mod.launches = 0
     reset_attention_counts()
+    reset_ssd_counts()
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
@@ -574,6 +606,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
                    "flash_attention:global": fa_mod.launches - fa_mod.swa_launches,
                    "ssd_scan": ssd_mod.launches}
     path_instance = fa_mod.instance(cfg.compute_dtype, d)
+    ssd_instance = ssd_mod.instance(cfg.compute_dtype, n, p)
     n_glob = cfg.num_global_layers
     expected = {"flash_attention:swa": (cfg.num_layers - n_glob) * LM_PREFILLS,
                 "flash_attention:global": n_glob * LM_PREFILLS,
@@ -591,12 +624,22 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
     if fa_mod.instance_launches[path_instance] != fa_mod.launches:
         fail(f"the bf16 LM path launched attention instances {fa_mod.instance_launches}, "
              f"not only {path_instance}")
+    if (ssd_instance != "tensor_core"
+            or ssd_mod.instance_launches[ssd_instance] != ssd_mod.launches
+            or ssd_mod.kernel_launches != len(ssd_mod.PHASES) * ssd_mod.launches):
+        fail(f"the bf16 LM path ran SSD instances {ssd_mod.instance_launches} in "
+             f"{ssd_mod.kernel_launches} kernel launches, not the tensor-core one in "
+             f"{len(ssd_mod.PHASES)} launches a call")
+    lm_launches["ssd_scan:instances"] = dict(ssd_mod.instance_launches)
+    lm_launches["ssd_scan:kernel_launches"] = ssd_mod.kernel_launches
     # one instance took every call, so the per-layer-kind split is exact
     lm_launches["flash_attention:instances"] = {
         kind: {**dict.fromkeys(fa_mod.INSTANCES, 0),
                path_instance: lm_launches[f"flash_attention:{kind}"]}
         for kind in ("swa", "global")}
-    print(f"LM path attention instances: {fa_mod.instance_launches}", flush=True)
+    print(f"LM path attention instances: {fa_mod.instance_launches}, SSD instances "
+          f"{ssd_mod.instance_launches} in {ssd_mod.kernel_launches} kernel launches",
+          flush=True)
     for toks in served["outputs"]:
         if toks.shape != (b, t + max_new) or toks.min() < 0 or toks.max() >= cfg.vocab:
             fail(f"served tokens: shape {toks.shape} or ids outside [0, {cfg.vocab})")
@@ -610,6 +653,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
     steps = {}
     caches = {}
     reset_attention_counts()
+    reset_ssd_counts()
     with torch.no_grad():
         for name, c in (("kernels", cfg32), ("plain", plain32)):
             sync()
@@ -622,6 +666,9 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         if fa_mod.instance_launches != {"tensor_core": 0, "cuda_core": cfg.num_layers}:
             fail(f"the float32 prefill launched attention instances {fa_mod.instance_launches}, "
                  f"not the CUDA-core kernel once a layer")
+        if ssd_mod.instance_launches != {"tensor_core": 0, "cuda_core": cfg.num_layers}:
+            fail(f"the float32 prefill ran SSD instances {ssd_mod.instance_launches}, "
+                 f"not the CUDA-core scan once a layer")
         logit_err = (steps["kernels"][0] - steps["plain"][0]).abs().max().item()
         if not torch.allclose(steps["kernels"][0], steps["plain"][0],
                               rtol=E2E_LOGIT_TOL, atol=E2E_LOGIT_TOL):

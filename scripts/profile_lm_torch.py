@@ -11,8 +11,9 @@ For each phase it prints, as one JSON line: the host wall time around work
 that ends in a device synchronisation, the summed duration of the device's
 kernels and copies, the share of the wall time with none of them running
 (one stream: device events do not overlap), the number of device events,
-and the kernels taking the most device time. Needs one CUDA card; imports
-nothing of JAX.
+the device time by kernel group (the SSD scan's three phases, attention,
+the library's matrix products, the rest) and the kernels taking the most
+device time. Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,8 +29,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
+# Kernel groups by a substring of the kernel's name, first match wins.
+GROUPS = (
+    ("ssd_chunk_state", ("ssd_chunk_state",)),
+    ("ssd_state_passing", ("ssd_state_passing",)),
+    ("ssd_chunk_scan", ("ssd_chunk_scan",)),
+    ("flash_attention", ("flash_attention",)),
+    ("matmul_library", ("nvjet", "gemm", "cutlass", "cublas")),
+)
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
 def device_summary(prof, wall_s: float, top: int = 8) -> dict:
-    """Device events of a trace: busy time, idle share, top kernels by time."""
+    """Device events of a trace: busy time, idle share, time by kernel group,
+    top kernels by time."""
     from torch.autograd import DeviceType
 
     by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
@@ -41,11 +60,15 @@ def device_summary(prof, wall_s: float, top: int = 8) -> dict:
         rec[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    by_group: dict[str, float] = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_group[group_of(name)] += ms
     return {
         "wall_ms": wall_s * 1e3,
         "device_busy_ms": busy_ms if by_name else None,
         "device_idle_share": (1.0 - busy_ms / (wall_s * 1e3)) if by_name else None,
         "device_events": sum(n for _, n in by_name.values()),
+        "group_ms": {g: by_group.get(g, 0.0) for g in (*(g for g, _ in GROUPS), "other")},
         "top_kernels": [{"name": name[:90], "ms": ms, "count": n}
                         for name, (ms, n) in ranked],
     }

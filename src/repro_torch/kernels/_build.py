@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every source under ``kernels/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
-(one process per source, all started together) and linked into one shared
-library, ``build/repro_torch/libkernels.so`` under the repository root. The
+(one process per source, all started together; the ``*.cuh`` headers they
+include are part of the hash) and linked into one shared library, ``build/repro_torch/libkernels.so`` under the repository root. The
 library has a plain C interface and is loaded with ``ctypes``: every pointer
 and the stream are ``c_void_p``. It is rebuilt when a hash of the sources
 and flags changes. Nothing is built or loaded at import time.
@@ -40,7 +40,7 @@ SIGNATURES = {
     "rt_glcm_global": [P, P, P, I, I, I, I, P],
     "rt_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
     "rt_flash_attention_tc": [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P],
-    "rt_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, LL, P],
+    "rt_ssd_scan": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -63,7 +63,7 @@ def sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

@@ -362,3 +362,103 @@ def ssd_scan_ref(
     if d_ is not None:
         y = y + d_.to(f32)[None, None, :, None] * x32
     return y.to(x.dtype), hcur
+
+
+# The chunked form, in the three phases of ``csrc/ssd_scan.cu``: a plain
+# mirror of the kernel's decomposition, for the tests (``ops.ssd_scan`` keeps
+# the sequential recurrence above as the plain version). T is padded with
+# zeros to whole chunks: a padded step has dt = 0, so it neither decays the
+# state nor adds to it, and its cum repeats the chunk's total.
+def _to_chunks(v: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, T, H, ...) float32 -> (B, H, nc, L, ...), zero-padded along T."""
+    t = v.shape[1]
+    nc = -(-t // chunk)
+    pad = torch.zeros((v.shape[0], nc * chunk - t, *v.shape[2:]), dtype=v.dtype,
+                      device=v.device)
+    v = torch.cat([v, pad], dim=1).reshape(v.shape[0], nc, chunk, *v.shape[2:])
+    return v.permute(0, 3, 1, 2, *range(4, v.dim())).float()
+
+
+def ssd_chunk_state_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Tensor, chunk: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Phase 1: (cum, dt, S), each chunk's inclusive cumsum of dt*a and its
+    dt, (B, H, nc, L), and its own state S_c = sum_j exp(total - cum_j) dt_j
+    B_j x_j^T, (B, H, nc, N, P), all float32."""
+    rep = x.shape[2] // b_.shape[2]
+    dth = _to_chunks(dt[..., None], chunk)[..., 0]
+    cum = torch.cumsum(dth * a.float()[None, :, None, None], dim=-1)
+    w = torch.exp(cum[..., -1:] - cum) * dth
+    bh = _to_chunks(torch.repeat_interleave(b_, rep, dim=2), chunk)
+    states = torch.einsum("bhcln,bhclp->bhcnp", bh * w[..., None], _to_chunks(x, chunk))
+    return cum, dth, states
+
+
+def ssd_state_passing_ref(
+    states: torch.Tensor, cum: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2: (the state entering each chunk (B, H, nc, N, P), the final
+    state (B, H, N, P)), by H_c = exp(total_{c-1}) H_{c-1} + S_{c-1}."""
+    entering = torch.empty_like(states)
+    hcur = torch.zeros_like(states[:, :, 0])
+    for c in range(states.shape[2]):
+        entering[:, :, c] = hcur
+        hcur = torch.exp(cum[:, :, c, -1])[..., None, None] * hcur + states[:, :, c]
+    return entering, hcur
+
+
+def ssd_chunk_scan_ref(
+    x: torch.Tensor,
+    b_: torch.Tensor,
+    c_: torch.Tensor,
+    cum: torch.Tensor,
+    dth: torch.Tensor,
+    entering: torch.Tensor,
+    d_: torch.Tensor | None,
+    chunk: int,
+    intra_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Phase 3: y (B, T, H, P) in x's dtype,
+    y_i = sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i.H_c + D x_i.
+
+    exp is taken of -inf above the diagonal, never of the positive exponent
+    there. ``intra_dtype`` rounds the scaled C B^T to that dtype before the
+    product with x, as the tensor-core instance does with bf16.
+    """
+    bsz, t, h, p = x.shape
+    rep = h // b_.shape[2]
+    xh = _to_chunks(x, chunk)
+    bh = _to_chunks(torch.repeat_interleave(b_, rep, dim=2), chunk)
+    ch = _to_chunks(torch.repeat_interleave(c_, rep, dim=2), chunk)
+    live = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    seg = torch.exp(torch.where(live, cum[..., :, None] - cum[..., None, :],
+                                torch.tensor(float("-inf"), device=x.device)))
+    s = torch.einsum("bhcln,bhcmn->bhclm", ch, bh) * seg * dth[..., None, :]
+    if intra_dtype is not None:
+        s = s.to(intra_dtype).float()
+    y = torch.einsum("bhclm,bhcmp->bhclp", s, xh)
+    y = y + torch.exp(cum)[..., None] * torch.einsum("bhcln,bhcnp->bhclp", ch, entering)
+    if d_ is not None:
+        y = y + d_.float()[None, :, None, None, None] * xh
+    y = y.permute(0, 2, 3, 1, 4).reshape(bsz, -1, h, p)[:, :t]
+    return y.to(x.dtype)
+
+
+def ssd_scan_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b_: torch.Tensor,
+    c_: torch.Tensor,
+    d_: torch.Tensor | None = None,
+    *,
+    chunk: int = 128,
+    intra_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three phases chained: (y (B,T,H,P) in x's dtype, final state
+    (B,H,N,P) float32), for any T (the last chunk may be short)."""
+    chunk = max(1, min(chunk, x.shape[1]))
+    cum, dth, states = ssd_chunk_state_ref(x, dt, a, b_, chunk)
+    entering, hf = ssd_state_passing_ref(states, cum)
+    y = ssd_chunk_scan_ref(x, b_, c_, cum, dth, entering, d_, chunk, intra_dtype)
+    return y, hf

@@ -325,6 +325,72 @@ def test_ssd_scan_cuda_strong_decay_does_not_overflow(dev):
     torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
 
 
+def _ssd_inputs(dev, dtype, b, t, h, p, g, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, t, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.rand((b, t, h), generator=gen, device=dev) * 0.1
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    bm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+    d = torch.randn((h,), generator=gen, device=dev)
+    return x, dt, a, bm, cm, d
+
+
+@pytest.mark.parametrize(
+    "b,t,h,p,g,n,chunk",
+    [(2, 2048, 50, 64, 1, 16, 128),  # Hymba's full SSD shape: 16 chunks to pass the state across
+     (1, 256, 8, 32, 2, 16, 64),  # G = 2, N = 16, P = 32
+     (2, 200, 4, 16, 2, 32, 48),  # N = 32 (two k-steps), a chunk of 48, a ragged last chunk
+     (1, 130, 2, 128, 1, 16, 128)],  # P = 128, a last chunk of 2
+)
+def test_ssd_scan_tensor_cores_match_plain(dev, b, t, h, p, g, n, chunk):
+    """bf16 with N a multiple of 16 runs the chunk scan on the tensor cores;
+    y is held at bf16's 3e-2 and the float32 state at 3e-4."""
+    args = _ssd_inputs(dev, torch.bfloat16, b, t, h, p, g, n, seed=t + p + n)
+    assert ssd_scan.instance(torch.bfloat16, n, p) == "tensor_core"
+    before = dict(ssd_scan.instance_launches)
+    y, hf = ops.ssd_scan(*args, impl="cuda", chunk=chunk)
+    assert ssd_scan.instance_launches == {**before, "tensor_core": before["tensor_core"] + 1}
+    yr, hr = ops.ssd_scan(*args, impl="torch")
+    torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
+
+
+def test_ssd_scan_tensor_cores_strong_decay(dev):
+    """dt = 2, a = -20 in bf16 on the tensor cores: the segment decay spans
+    exp(-5080) within a chunk, and y stays finite and equal to the plain one."""
+    b, t, h, p, g, n = 1, 256, 2, 16, 1, 16
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((b, t, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    dt = torch.full((b, t, h), 2.0, device=dev)
+    a = torch.full((h,), -20.0, device=dev)
+    bm, cm = (torch.randn((b, t, g, n), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    assert ssd_scan.instance(torch.bfloat16, n, p) == "tensor_core"
+    y, hf = ops.ssd_scan(x, dt, a, bm, cm, None, impl="cuda", chunk=128)
+    yr, hr = ops.ssd_scan(x, dt, a, bm, cm, None, impl="torch")
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("dtype,n,p", [(torch.bfloat16, 16, 64), (torch.bfloat16, 8, 16),
+                                       (torch.float32, 16, 64)])
+def test_ssd_scan_cuda_counts_one_call_three_launches(dev, dtype, n, p):
+    args = _ssd_inputs(dev, dtype, 1, 100, 4, p, 2, n, seed=n + p)
+    which = ssd_scan.instance(dtype, n, p)
+    before = (ssd_scan.launches, ssd_scan.kernel_launches, dict(ssd_scan.instance_launches))
+    events = []
+    ops.ssd_scan(*args, impl="cuda", chunk=32)
+    assert ssd_scan.launches == before[0] + 1
+    assert ssd_scan.kernel_launches == before[1] + len(ssd_scan.PHASES) == before[1] + 3
+    assert ssd_scan.instance_launches == {**before[2], which: before[2][which] + 1}
+    ssd_scan.ssd_scan_cuda(*args, chunk=32, events=events)
+    events[-1].synchronize()
+    assert len(events) == 4
+    assert all(e0.elapsed_time(e1) >= 0.0 for e0, e1 in zip(events, events[1:]))
+
+
 def test_hybrid_generate_cuda_matches_plain(dev):
     cfg = ModelConfig(name="h", family="hybrid", num_layers=3, d_model=64, num_heads=4,
                       num_kv_heads=2, head_dim=16, d_ff=128, vocab=128, window=8,
