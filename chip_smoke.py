@@ -11,7 +11,10 @@ Phases, each fatal on failure:
      GLCM also at 256 bins), and time both with CUDA events; the
      reconstruction is held bit for bit against the plain version after
      checking that the plain version converged, and is also timed on its
-     worst case, a 1-pixel serpentine corridor;
+     worst case, a 1-pixel serpentine corridor; CCL's three phases and
+     GLCM's launch are also timed on the device alone (events queued behind
+     a device sleep), CCL also on its worst cases, a serpentine through
+     every tile and a full mask, each checked against its closed form;
   4. run the WSI path, ``analyze_tile`` at 4096^2 with the default config,
      with every launch counter set to 0 just before and read just after, and
      check it stage by stage against the same call with ``impl="torch"``;
@@ -75,7 +78,8 @@ SSD_TOLS = {"bf16": 3e-2, "f32": 3e-4}
 # against the step-by-step recurrence), and 32 layers carry the difference.
 E2E_LOGIT_TOL = 1e-3
 E2E_DECODE_STEPS = 8
-SSD_PHASE_SLEEP_CYCLES = 2_000_000  # about 1 ms of device time ahead of the phases
+PHASE_SLEEP_CYCLES = 2_000_000  # about 1 ms of device time ahead of a timed call
+CCL_WORST = (4095, 4096)  # CCL's worst cases: a serpentine and a full mask through every tile
 
 
 def fail(msg: str) -> None:
@@ -272,13 +276,34 @@ def main() -> None:
     if not torch.equal(ref.ccl_sweep_ref(at_fixed_point, mask_b), at_fixed_point):
         fail("the plain ccl did not converge within its max_iters; the comparison is void")
     n_objects = int(torch.unique(p_lab[mask_b]).numel())
+    before = ccl_mod.kernel_launches
+    ops.connected_components(mask, impl="cuda")
+    ccl_per_call = ccl_mod.kernel_launches - before
     rec["ccl"] = dict(
-        max_abs_err=0.0,
+        max_abs_err=0.0, kernel_launches_per_call=ccl_per_call,
         ms=time_ms(lambda: ops.connected_components(mask, impl="cuda"), 10),
+        phase_ms=device_ms(torch, lambda ev: ccl_mod.ccl_cuda(mask, events=ev),
+                           ccl_mod.PHASES, 10),
         plain_ms=time_ms(lambda: ops.connected_components(mask, impl="torch"), 2, warmup=0),
         library_ms=None,
         bound=bound(2 * hw * 4, 4 * hw),
     )
+    # CCL's worst cases, labels known in closed form: a serpentine that
+    # crosses every tile (one component, its first pixel 0) and a full mask
+    # (every border union and every compression on the one root 0)
+    ccl_worst = []
+    for case, m_np in (("snake", serpentine(*CCL_WORST)), ("full", np.ones(CCL_WORST, bool))):
+        m_w = torch.as_tensor(m_np.astype(np.int32), device=dev)
+        want = torch.where(m_w != 0, torch.zeros_like(m_w), torch.full_like(m_w, -1))
+        exact(f"ccl on the {case} mask", ops.connected_components(m_w, impl="cuda"), want)
+        ccl_worst.append(dict(
+            kernel=f"ccl:{case}", shape=CCL_WORST, max_abs_err=0.0,
+            kernel_ms=time_ms(lambda: ops.connected_components(m_w, impl="cuda"), 5),
+            phase_ms=device_ms(torch, lambda ev: ccl_mod.ccl_cuda(m_w, events=ev),
+                               ccl_mod.PHASES, 5),
+            bound_ms=bound(2 * m_w.numel() * 4, 4 * m_w.numel())[0],
+        ))
+        del m_w, want
 
     # GLCM + histogram on the main path's ROI batch
     rois, _ = extract_object_rois(p_lab, hema_n, cfg, device=dev)
@@ -296,6 +321,7 @@ def main() -> None:
     rec["glcm"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: ops.glcm_histogram(bins, nb, impl="cuda"), 20),
+        phase_ms=device_ms(torch, lambda ev: glcm_mod.glcm_cuda(bins, nb, events=ev), (), 20),
         plain_ms=time_ms(lambda: ops.glcm_histogram(bins, nb, impl="torch"), 10),
         library_ms=time_ms(lambda: torch.bincount(pair_idx, minlength=b * nb * nb), 10),
         bound=bound(bins.numel() * 4 + (k_g.numel() + k_h.numel()) * 4, 3 * bins.numel()),
@@ -314,6 +340,8 @@ def main() -> None:
     glcm_wide = dict(
         kernel=f"glcm:nb{GLCM_WIDE_BINS}", max_abs_err=0.0,
         kernel_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="cuda"), 20),
+        device_ms=device_ms(torch, lambda ev: glcm_mod.glcm_cuda(
+            wide, GLCM_WIDE_BINS, events=ev), (), 20)["device"],
         plain_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch"), 10),
         library_ms=time_ms(
             lambda: torch.bincount(wide_idx, minlength=b * GLCM_WIDE_BINS**2), 10),
@@ -329,17 +357,22 @@ def main() -> None:
     for mod in modules.values():
         mod.launches = 0
     reset_recon_counts()
+    ccl_mod.kernel_launches = 0
     sync()
     t0 = time.perf_counter()
     out = analyze_tile(rgb, cfg)
     sync()
     wall_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in modules.items()}
+    launches["ccl:kernel_launches"] = ccl_mod.kernel_launches
     print(f"main path: analyze_tile {tuple(rgb.shape)} in {wall_s:.3f} s, launches {launches}, "
           f"reconstruction rounds {mr_mod.rounds}, tile visits {mr_mod.tile_visits}")
     for name, n in launches.items():
         if n == 0:
             fail(f"the main path never launched the {name} kernel")
+    if launches["ccl:kernel_launches"] != len(ccl_mod.PHASES) * launches["ccl"]:
+        fail(f"the main path's {launches['ccl']} ccl calls made "
+             f"{launches['ccl:kernel_launches']} kernel launches, not {len(ccl_mod.PHASES)} each")
 
     feats = out["features"]
     k = min(n_objects, cfg.max_objects_per_tile)
@@ -422,10 +455,13 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "kernel_ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": r["bound"][0]}
-        line.update({k: r[k] for k in ("launches_per_call", "rounds_per_call", "tile_visits")
+        line.update({k: r[k] for k in ("launches_per_call", "rounds_per_call", "tile_visits",
+                                       "kernel_launches_per_call", "phase_ms")
                      if k in r})
         print(json.dumps(line))
     print(json.dumps(corridor_rec))
+    for worst in ccl_worst:
+        print(json.dumps(worst))
     print(json.dumps(glcm_wide))
     # the LM kernels' entries are their bf16 (the path's dtype) measurements;
     # attention has one entry for the SWA layers' calls and one for the global
@@ -451,6 +487,10 @@ def main() -> None:
         if name == "ssd_scan":
             kernels[-1]["instance_launches"] = launches["ssd_scan:instances"]
             kernels[-1]["kernel_launches"] = launches["ssd_scan:kernel_launches"]
+        if name == "ccl":
+            kernels[-1]["kernel_launches"] = launches["ccl:kernel_launches"]
+        if "phase_ms" in r:  # the device's time of a call, apart from the host's
+            kernels[-1]["device_ms"] = r["phase_ms"]["device"]
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -471,20 +511,24 @@ def lm_bound(nbytes: int, nops: int) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_phase_ms(torch, ssd_mod, args, chunk: int, reps: int) -> dict[str, float]:
-    """Median CUDA-event time of each of the SSD scan's phases over ``reps``
-    calls, after one warm-up call. Each call is queued behind a device sleep,
-    so the host has enqueued all three launches before the first runs and
-    the events time the device, not the host's launch gaps."""
-    ssd_mod.ssd_scan_cuda(*args, chunk=chunk)
-    times = {name: [] for name in ssd_mod.PHASES}
+def device_ms(torch, call, phases, reps: int) -> dict[str, float]:
+    """Median CUDA-event times of a kernel wrapper's phases over ``reps``
+    calls, after one warm-up call. ``call(events)`` runs the wrapper once,
+    passing it ``events``, a list that receives one event before its first
+    phase and one after each of ``phases``. Each call is queued behind a
+    device sleep, so the host has enqueued every launch before the first
+    runs and the events time the device, not the host. Returns each phase's
+    time and, as ``"device"``, the whole call's."""
+    call([])
+    times = {name: [] for name in (*phases, "device")}
     for _ in range(reps):
         events: list = []
-        torch.cuda._sleep(SSD_PHASE_SLEEP_CYCLES)
-        ssd_mod.ssd_scan_cuda(*args, chunk=chunk, events=events)
+        torch.cuda._sleep(PHASE_SLEEP_CYCLES)
+        call(events)
         events[-1].synchronize()
-        for name, e0, e1 in zip(ssd_mod.PHASES, events, events[1:]):
+        for name, e0, e1 in zip(phases, events, events[1:]):
             times[name].append(e0.elapsed_time(e1))
+        times["device"].append(events[0].elapsed_time(events[-1]))
     return {name: float(np.median(v)) for name, v in times.items()}
 
 
@@ -563,7 +607,8 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         if not (torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
                 and torch.allclose(hf, hr, rtol=3e-4, atol=3e-4)):
             fail(f"ssd_scan ({dname}) disagrees with its plain version: max |err| {err}")
-        phase_ms = ssd_phase_ms(torch, ssd_mod, (x, dt, a, bm, cm, dsk), cfg.ssm_chunk, 10)
+        phase_ms = device_ms(torch, lambda ev: ssd_mod.ssd_scan_cuda(
+            x, dt, a, bm, cm, dsk, chunk=cfg.ssm_chunk, events=ev), ssd_mod.PHASES, 10)
         rec[f"ssd_scan:{dname}"] = dict(
             instance=ssd_mod.instance(dtype, n, p), kernel_launches=per_call,
             phase_ms=phase_ms, max_abs_err=err,

@@ -31,11 +31,13 @@ NVCC_FLAGS = [
 ]
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of the entry points (all return cudaError_t as int).
+# C signatures of the entry points (all return an int: cudaError_t, or for
+# rt_ccl_scratch_ints a size).
 SIGNATURES = {
     "rt_color_deconv": [P, P, P, LL, F, P],
     "rt_morph_recon_rounds": [P, P, P, P, I, I, I, I, P],
-    "rt_ccl": [P, P, I, I, P],
+    "rt_ccl": [P, P, P, I, I, P, P],
+    "rt_ccl_scratch_ints": [I, I],
     "rt_glcm": [P, P, P, I, I, I, I, P],
     "rt_glcm_global": [P, P, P, I, I, I, I, P],
     "rt_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
@@ -111,6 +113,8 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -120,6 +124,16 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def event_handles(events: list, n: int) -> ctypes.Array:
+    """Append ``n`` timing events to ``events`` and return their handles as
+    the ``void* const*`` that an entry point records them through."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for ev in marks:
+        ev.record()  # creates the event; the kernel library records it again
+    events.extend(marks)
+    return (ctypes.c_void_p * n)(*(ev.cuda_event for ev in marks))
 
 
 def check(code: int, name: str) -> None:

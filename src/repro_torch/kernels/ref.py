@@ -160,6 +160,173 @@ def ccl_unionfind_host(mask: np.ndarray) -> np.ndarray:
     return labels
 
 
+def _unite_steps(parent: list, a: int, b: int):
+    """One union as ``csrc/ccl.cu`` runs it, yielding after every access to
+    ``parent``: find both roots, hang the larger under the smaller with an
+    atomicMin, and retry from the old parent if that root had moved."""
+    while True:
+        p = parent[a]
+        yield
+        while p != a:
+            a, p = p, parent[p]
+            yield
+        p = parent[b]
+        yield
+        while p != b:
+            b, p = p, parent[p]
+            yield
+        if a == b:
+            return
+        if a < b:
+            a, b = b, a
+        old = parent[a]  # atomicMin: read and write in one access
+        parent[a] = min(old, b)
+        yield
+        if old == a:
+            return
+        a = old
+
+
+def _unite_interleaved(parent: list, pairs: list, rng: np.random.Generator, lanes: int) -> None:
+    """Run the unions of ``pairs`` in a random order, ``lanes`` at a time in
+    flight, a random one advancing by one access at each step: the card's
+    threads race on the forest the same way."""
+    order = rng.permutation(len(pairs))
+    queue = iter(order.tolist())
+    active: list = []
+    while True:
+        while len(active) < lanes:
+            k = next(queue, None)
+            if k is None:
+                break
+            active.append(_unite_steps(parent, *pairs[k]))
+        if not active:
+            return
+        j = int(rng.integers(len(active)))
+        try:
+            next(active[j])
+        except StopIteration:
+            active[j] = active[-1]
+            active.pop()
+
+
+def _find(parent: list, x: int) -> int:
+    while parent[x] != x:
+        x = parent[x]
+    return x
+
+
+def ccl_blocked_local(mask: np.ndarray, tile: tuple[int, int] = (32, 32), seed: int = 0,
+                      lanes: int = 32) -> np.ndarray:
+    """Phase 1 of ``csrc/ccl.cu``: each tile labelled on its own.
+
+    A tile's forest lives in tile-local raster indices (stride ``tile[1]``).
+    Every set pixel starts linked to the first pixel of its run along the
+    row; each row unites with the one above where a run of pixels set in
+    both rows begins; then each run's first pixel takes its root. Returns
+    (H, W) int64 provisional labels: the global flat index of each pixel's
+    local root (its local component's minimum), -1 off the mask.
+    """
+    m = (np.asarray(mask) != 0).tolist()
+    h, w = len(m), len(m[0]) if m else 0
+    th, tw = tile
+    rng = np.random.default_rng(seed)
+    labels = np.full((h, w), -1, dtype=np.int64)
+
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            def on(ly: int, lx: int) -> bool:
+                y, x = ty0 + ly, tx0 + lx
+                return y < h and x < w and m[y][x]
+
+            s = [-1] * (th * tw)
+            starts = []  # each run's first pixel
+            for ly in range(th):
+                first = -1
+                for lx in range(tw):
+                    if on(ly, lx):
+                        if first < 0:
+                            first = ly * tw + lx
+                            starts.append(first)
+                        s[ly * tw + lx] = first
+                    else:
+                        first = -1
+            pairs = [
+                (ly * tw + lx, (ly - 1) * tw + lx)
+                for ly in range(1, th) for lx in range(tw)
+                if on(ly, lx) and on(ly - 1, lx)
+                and not (lx > 0 and on(ly, lx - 1) and on(ly - 1, lx - 1))
+            ]
+            _unite_interleaved(s, pairs, rng, lanes)
+            for i in starts:
+                s[i] = _find(s, i)
+            for ly in range(min(th, h - ty0)):
+                for lx in range(min(tw, w - tx0)):
+                    if on(ly, lx):
+                        r = s[s[ly * tw + lx]]  # the run's first pixel holds the root
+                        labels[ty0 + ly, tx0 + lx] = (ty0 + r // tw) * w + tx0 + r % tw
+    return labels
+
+
+def ccl_blocked_border_pairs(mask: np.ndarray, tile: tuple[int, int] = (32, 32)) -> list:
+    """Phase 2's unions: (pixel, neighbour) flat indices across each tile's
+    top row and left column, less those that a neighbour's union already
+    joins (left and up-left set on a top row, up and up-left on a left
+    column, inside one tile)."""
+    m = np.asarray(mask) != 0
+    h, w = m.shape
+    th, tw = tile
+    pairs = []
+    for y in range(th, h, th):
+        for x in range(w):
+            if not (m[y, x] and m[y - 1, x]):
+                continue
+            if x % tw and m[y, x - 1] and m[y - 1, x - 1]:
+                continue
+            pairs.append((y * w + x, (y - 1) * w + x))
+    for x in range(tw, w, tw):
+        for y in range(h):
+            if not (m[y, x] and m[y, x - 1]):
+                continue
+            if y % th and m[y - 1, x] and m[y - 1, x - 1]:
+                continue
+            pairs.append((y * w + x, y * w + x - 1))
+    return pairs
+
+
+def ccl_blocked(mask: np.ndarray, tile: tuple[int, int] = (32, 32), seed: int = 0,
+                lanes: int = 32) -> np.ndarray:
+    """Plain mirror of ``csrc/ccl.cu``'s three phases, for the tests.
+
+    1. local: :func:`ccl_blocked_local`;
+    2. border: the unions of :func:`ccl_blocked_border_pairs` on the label
+       array as a forest of global flat indices, interleaved as threads race
+       (``lanes`` in flight, order and steps drawn from ``seed``); each marks
+       the tiles of its two pixels;
+    3. compress: in the marked tiles only, every label set to its root, the
+       root written over each parent on the chain walked, pixels in a random
+       order. An unmarked tile keeps its local labels.
+    Returns (H, W) int32 canonical labels, as :func:`ccl_unionfind_host`.
+    """
+    rng = np.random.default_rng(seed + 1)
+    local = ccl_blocked_local(mask, tile, seed, lanes)
+    h, w = local.shape
+    th, tw = tile
+    parent = local.reshape(-1).tolist()
+    pairs = ccl_blocked_border_pairs(mask, tile)
+    _unite_interleaved(parent, pairs, rng, lanes)
+    marked = {(i // w // th, i % w // tw) for pair in pairs for i in pair}
+    for i in rng.permutation(len(parent)).tolist():
+        l = parent[i]
+        if l < 0 or (i // w // th, i % w // tw) not in marked:
+            continue
+        r = _find(parent, l)
+        while l != r:
+            parent[l], l = r, parent[l]
+        parent[i] = r
+    return np.asarray(parent, dtype=np.int32).reshape(local.shape)
+
+
 def _ccl_scan_1d(labels: torch.Tensor, mask: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
     """Min-label propagation along ``dim`` within mask runs.
 

@@ -15,8 +15,6 @@ plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -127,13 +125,7 @@ def ssd_scan_cuda(
     scratch = torch.empty(bsz * h * nc * (2 * lp + n * p), dtype=torch.float32, device=x.device)
     ncd = bsz * h * nc * 2 * lp  # cd (B*H, nc, 2, Lp), then the states (B, H, nc, N, P)
     hf = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
-    handles = None
-    if events is not None:
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(PHASES) + 1)]
-        for ev in marks:
-            ev.record()  # creates the event; the kernel library records it again
-        handles = (ctypes.c_void_p * len(marks))(*(ev.cuda_event for ev in marks))
-        events.extend(marks)
+    handles = None if events is None else _build.event_handles(events, len(PHASES) + 1)
     with torch.cuda.device(x.device):
         code = _build.lib().rt_ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_.data_ptr(), c_.data_ptr(),

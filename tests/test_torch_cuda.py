@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs.wsi import WSIConfig
-from repro_torch.kernels import flash_attention, ops, ref, ssd_scan
+from repro_torch.kernels import ccl, flash_attention, ops, ref, ssd_scan
 from repro_torch.kernels.glcm import glcm_cuda
 from repro_torch.models import HybridLM, ModelConfig
 from repro_torch.pipeline import analyze_tile, make_tile
@@ -168,6 +168,139 @@ def test_ccl_cuda_long_snake_is_one_component(dev, h, w):
     got = ops.connected_components(m, impl="cuda")
     want = torch.where(m != 0, torch.zeros_like(m), torch.full_like(m, -1))
     assert torch.equal(got, want)
+
+
+def _canonical_labels(m):
+    """Canonical labels (minimum flat index, -1 off the mask) of a large mask
+    from scipy's raster-order labelling: a component's first pixel in raster
+    order is its minimum flat index."""
+    from scipy import ndimage
+
+    lab, _ = ndimage.label(m)  # 4-connected by default in 2-D
+    _, first = np.unique(lab.reshape(-1), return_index=True)
+    return np.where(lab > 0, first.astype(np.int64)[lab], -1).astype(np.int32)
+
+
+def test_canonical_labels_helper_matches_union_find():
+    m = np.random.default_rng(3).random((40, 57)) < 0.55
+    np.testing.assert_array_equal(_canonical_labels(m), ref.ccl_unionfind_host(m))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ccl_cuda_components_cross_tile_corners(dev, seed):
+    """Shapes centred on 32x32 tile corners and edges: diagonal staircases,
+    plus signs, rings and random blobs that join four tiles at one point."""
+    rng = np.random.default_rng(seed)
+    h, w = 137, 170
+    m = rng.random((h, w)) < 0.3
+    for cy in range(32, h - 4, 32):
+        for cx in range(32, w - 5, 32):
+            m[cy - 3:cy + 3, cx] = True  # a plus across the corner
+            m[cy, cx - 3:cx + 3] = True
+            for d in range(-4, 4):  # a staircase through the corner
+                m[cy + d, cx + d] = m[cy + d, cx + d + 1] = True
+            m[cy - 6:cy - 4, cx - 1:cx + 1] = True  # a 2x2 block split four ways
+    m[0:32, 31:33] = True  # a bar along a tile column border
+    got = ops.connected_components(_t(m.astype(np.int32), dev), impl="cuda")
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.ccl_unionfind_host(m))
+
+
+@pytest.mark.parametrize("h,w", [(4096, 4096), (4095, 4097), (1, 5000), (5000, 1)])
+def test_ccl_cuda_full_mask_is_all_zero(dev, h, w):
+    """One component through every tile: the worst contention on one root
+    (one border union per tile edge, every compression to 0)."""
+    got = ops.connected_components(torch.ones((h, w), dtype=torch.int32, device=dev),
+                                   impl="cuda")
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("h,w", [(4096, 4096), (67, 93)])
+def test_ccl_cuda_checkerboard_is_one_label_a_pixel(dev, h, w):
+    """Every set pixel is its own component: label = own flat index."""
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                            indexing="ij")
+    m = ((yy + xx) % 2 == 0).to(torch.int32)
+    flat = (yy * w + xx).to(torch.int32)
+    got = ops.connected_components(m, impl="cuda")
+    assert torch.equal(got, torch.where(m != 0, flat, torch.full_like(flat, -1)))
+
+
+@pytest.mark.parametrize("density", [0.4, 0.6])
+def test_ccl_cuda_ragged_large_mask(dev, density):
+    """4095x4097: neither side a multiple of the 32x32 tile and W odd, so the
+    local and compress phases take their scalar loads."""
+    m = np.random.default_rng(int(density * 10)).random((4095, 4097)) < density
+    got = ops.connected_components(_t(m.astype(np.int32), dev), impl="cuda")
+    np.testing.assert_array_equal(got.cpu().numpy(), _canonical_labels(m))
+
+
+def test_ccl_cuda_unaligned_mask_takes_scalar_loads(dev):
+    """W % 4 == 0 but the mask starts 4 bytes into its buffer: the 16-byte
+    path does not apply and the result is the same."""
+    h, w = 96, 128
+    m = np.random.default_rng(11).random((h, w)) < 0.55
+    buf = torch.zeros(h * w + 1, dtype=torch.int32, device=dev)
+    x = buf[1:].view(h, w)
+    x.copy_(_t(m.astype(np.int32), dev))
+    assert x.data_ptr() % 16 != 0
+    got = ops.connected_components(x, impl="cuda")
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.ccl_unionfind_host(m))
+
+
+def test_ccl_cuda_counts_one_call_three_launches_and_times_phases(dev):
+    m = torch.ones((100, 100), dtype=torch.int32, device=dev)
+    calls, kernels = ccl.launches, ccl.kernel_launches
+    events = []
+    got = ccl.ccl_cuda(m, events=events)
+    events[-1].synchronize()
+    assert (ccl.launches - calls, ccl.kernel_launches - kernels) == (1, len(ccl.PHASES))
+    assert len(events) == len(ccl.PHASES) + 1
+    assert all(e0.elapsed_time(e1) >= 0 for e0, e1 in zip(events, events[1:]))
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+# 8 copies of the counters at NB = 32 (the WSI path's), one at NB = 85
+@pytest.mark.parametrize("nb", [32, 85])
+@pytest.mark.parametrize("b,h,w", [(512, 64, 64), (3, 20, 21), (2, 7, 1)])
+def test_glcm_cuda_one_bin_everywhere(dev, nb, b, h, w):
+    """Every bin the same: every lane of every warp hits one counter."""
+    bins = torch.full((b, h, w), 3, dtype=torch.int32, device=dev)
+    g, hist = glcm_cuda(bins, nb)
+    want_h = torch.zeros((b, nb), device=dev)
+    want_h[:, 3] = h * w
+    want_g = torch.zeros((b, nb, nb), device=dev)
+    want_g[:, 3, 3] = h * (w - 1)
+    assert torch.equal(hist, want_h)
+    assert torch.equal(g, want_g)
+
+
+@pytest.mark.parametrize("nb", [32, 85])
+@pytest.mark.parametrize("b,h,w", [(512, 64, 64), (6, 16, 32), (7, 33, 47), (4, 20, 21),
+                                   (5, 50, 1), (3, 9, 2)])
+def test_glcm_cuda_out_of_range_bins_and_widths(dev, nb, b, h, w):
+    """Bins -1 and NB (count nowhere) mixed with a few popular bins, on the
+    16-byte path (W % 4 == 0) and the scalar one (W % 4 != 0, W = 1)."""
+    rng = np.random.default_rng(b * h * w)
+    vals = np.array([-1, nb, 0, 0, 0, 1, 1, 2, 3, nb - 1, 17], dtype=np.int32)
+    bins = _t(vals[rng.integers(0, vals.size, (b, h, w))], dev)
+    g, hist = glcm_cuda(bins, nb)
+    g_ref, h_ref = ops.glcm_histogram(bins, nb, impl="torch")
+    assert torch.equal(g, g_ref)
+    assert torch.equal(hist, h_ref)
+
+
+def test_glcm_cuda_unaligned_batch_and_events(dev):
+    """A batch that starts 4 bytes into its buffer takes the scalar loads;
+    events bracket the launch."""
+    b, h, w, nb = 9, 16, 16, 32
+    buf = torch.randint(-1, nb + 1, (b * h * w + 1,), dtype=torch.int32, device=dev)
+    bins = buf[1:].view(b, h, w)
+    events = []
+    g, hist = glcm_cuda(bins, nb, events=events)
+    events[-1].synchronize()
+    assert len(events) == 2 and events[0].elapsed_time(events[1]) >= 0
+    g_ref, h_ref = ops.glcm_histogram(bins, nb, impl="torch")
+    assert torch.equal(g, g_ref) and torch.equal(hist, h_ref)
 
 
 @pytest.mark.parametrize("b,h,w,nb", [(2, 16, 16, 8), (4, 24, 32, 16), (512, 64, 64, 32),
