@@ -18,6 +18,15 @@ Phases, each fatal on failure:
   4. run the WSI path, ``analyze_tile`` at 4096^2 with the default config,
      with every launch counter set to 0 just before and read just after, and
      check it stage by stage against the same call with ``impl="torch"``;
+  4b. run the WSI path in its region-template form (``SegmentationStage`` ->
+     ``FeatureStage`` under ``SysEnv``, data through the DMS): one partition
+     at 4096^2, holding its labels bit for bit and its features against
+     ``analyze_tile``'s and its launch counts against one ``analyze_tile``'s,
+     timed against ``analyze_tile`` from host numpy in to host results out
+     (the paper's Fig. 11 overhead); then 16 partitions of 1024^2 over 3
+     workers on tiered stores, each held bit for bit against ``analyze_tile``
+     on its crop; then ``DevicePipeline`` mapping color deconvolution over 16
+     tiles with windows 1 and 2, held bit for bit against direct calls;
   5. hold the LM path's two kernels (flash attention, SSD scan) against
      their plain versions at Hymba-1.5B's prefill shapes, in bfloat16 and
      float32, and time them beside the plain versions and a library call;
@@ -430,6 +439,9 @@ def main() -> None:
     print("stages (s): " + json.dumps(stage))
     print(f"objects: {n_objects} in the slide, {k} analysed; features {tuple(feats.shape)}")
 
+    # -- 4b. the RT path -----------------------------------------------------------
+    rt_phases(torch, dev, sync, rgb_np, cfg, out, launches)
+
     # -- 5.-7. the LM path -----------------------------------------------------
     del rgb, minv, k_st, p_st, out, plain, seg
     lm_rec, lm_launches = lm_phases(torch, dev, time_ms, sync, modules)
@@ -496,6 +508,233 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
+
+def rt_phases(torch, dev, sync, rgb_np: np.ndarray, cfg, kernel_out: dict,
+              tile_launches: dict) -> None:
+    """Phase 4b: the WSI path in its region-template form, then
+    ``DevicePipeline``, on ``dev``. ``kernel_out`` is ``analyze_tile``'s
+    result there and ``tile_launches`` its launch counts (phase 4). The
+    tiled run and the pipeline cut the slide into 4x4 partitions."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import BoundingBox, Intent, RegionTemplate
+    from repro_torch.kernels import ccl as ccl_mod
+    from repro_torch.kernels import color_deconv as cd_mod
+    from repro_torch.kernels import glcm as glcm_mod
+    from repro_torch.kernels import morph_recon as mr_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pipeline import FeatureStage, SegmentationStage, analyze_tile
+    from repro_torch.pipeline import make_wsi_storage
+    from repro_torch.runtime import DevicePipeline, SysEnv
+
+    _, h, w = rgb_np.shape
+    dom3 = BoundingBox((0, 0, 0), (3, h, w))
+    dom2 = BoundingBox((0, 0), (h, w))
+
+    def rt_run(reg, part: int, num_workers: int) -> dict:
+        """One run of Segmentation -> Features over ``part``-sized
+        partitions: a fresh template, the RGB put into DMS3 before the
+        clock, the clock from ``startup_execution`` to the labels and
+        features on the host."""
+        rt = RegionTemplate("Patient")
+        rgb_region = rt.new_region("RGB", dom3, np.float32, input_storage="DMS3", lazy=True)
+        reg.get("DMS3").put(rgb_region.key, dom3, rgb_np)
+        env = SysEnv(num_workers=num_workers, cpus_per_worker=2, accels_per_worker=1,
+                     registry=reg)
+        pairs = []
+        for part2 in dom2.tiles((part, part)):
+            part3 = BoundingBox((0,) + part2.lo, (3,) + part2.hi)
+            seg = SegmentationStage(cfg, device=dev)
+            seg.add_region_template(rt, "RGB", part3, Intent.INPUT, read_storage="DMS3")
+            seg.add_region_template(rt, "Mask", part2, Intent.OUTPUT, storage="DMS2")
+            seg.add_region_template(rt, "Hema", part2, Intent.OUTPUT, storage="DMS2")
+            feat = FeatureStage(cfg, device=dev)
+            feat.add_region_template(rt, "Mask", part2, Intent.INPUT, read_storage="DMS2")
+            feat.add_region_template(rt, "Hema", part2, Intent.INPUT, read_storage="DMS2")
+            feat.add_dependency(seg)
+            env.execute_component(seg)
+            env.execute_component(feat)
+            pairs.append((part2, seg, feat))
+        sync()
+        t0 = time.perf_counter()
+        env.startup_execution()
+        labels = reg.get("DMS2").get(pairs[0][1].templates["Patient"].get("Mask").key, dom2)
+        feats = [f.templates["Patient"].get("Features").data["features"] for _, _, f in pairs]
+        wall = time.perf_counter() - t0
+        env.finalize_system()
+        task_s: dict[str, float] = {}  # the WRM's seconds a task name, all workers
+        for worker in env.workers:
+            for name, prof in worker.wrm.profile.items():
+                task_s[name] = task_s.get(name, 0.0) + prof["cpu_s"] + prof["accel_s"]
+        seg_rt = pairs[0][1].templates["Patient"]
+        keys = {"RGB": rgb_region.key, "Mask": seg_rt.get("Mask").key,
+                "Hema": seg_rt.get("Hema").key}
+        return {"wall_s": wall, "labels": labels, "features": feats, "task_s": task_s,
+                "keys": keys, "parts": [p for p, _, _ in pairs]}
+
+    def reset_counts() -> None:
+        for mod in (cd_mod, mr_mod, ccl_mod, glcm_mod):
+            mod.launches = 0
+        mr_mod.calls = mr_mod.rounds = mr_mod.tile_visits = 0
+        ccl_mod.kernel_launches = 0
+
+    def counts() -> dict:
+        return {"color_deconv": cd_mod.launches, "morph_recon": mr_mod.launches,
+                "morph_recon:calls": mr_mod.calls, "ccl": ccl_mod.launches,
+                "ccl:kernel_launches": ccl_mod.kernel_launches, "glcm": glcm_mod.launches}
+
+    # one analyze_tile's counts (phase 4 read them without the calls counter)
+    reset_counts()
+    analyze_tile(rgb_np, cfg, device=dev)
+    sync()
+    tile_counts = counts()
+    if any(tile_counts[k] != tile_launches[k] for k in ("color_deconv", "ccl", "glcm")):
+        fail(f"analyze_tile's launch counts moved between two calls: {tile_counts} "
+             f"against {tile_launches}")
+
+    # -- one partition at the paper's size ------------------------------------------
+    reg = make_wsi_storage(h, w, mode="dms")
+    want_labels = kernel_out["labels"].cpu().numpy()
+    want_feats = kernel_out["features"].cpu().numpy()
+    rt_walls, rt_counts = [], []
+    for rep in range(4):  # one warm run, then three timed
+        reset_counts()
+        got = rt_run(reg, max(h, w), 1)
+        rt_counts.append(counts())
+        if not np.array_equal(got["labels"], want_labels):
+            n_bad = int((got["labels"] != want_labels).sum())
+            fail(f"RT labels read back from DMS2 differ from analyze_tile's at {n_bad} pixels")
+        feats = got["features"][0]
+        if feats.shape != want_feats.shape:
+            fail(f"RT features {feats.shape}, analyze_tile's {want_feats.shape}")
+        feat_err = float(np.abs(feats - want_feats).max()) if feats.size else 0.0
+        if not np.allclose(feats, want_feats, rtol=FEATURE_TOL, atol=FEATURE_TOL):
+            fail(f"RT features differ from analyze_tile's by {feat_err}")
+        if rep:
+            rt_walls.append(got["wall_s"])
+    feats_equal = bool(np.array_equal(feats, want_feats))
+
+    def host_s(fn, reps: int = 3) -> float:
+        """Median host-clock seconds of ``fn`` (ending in a synchronise)."""
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    # the RT path's data movement, one piece at a time: the stores' reads and
+    # writes (host copies) and the copies between host and card
+    dms2, keys = reg.get("DMS2"), got["keys"]
+    hema_np = dms2.get(keys["Hema"], dom2)
+    moves = {
+        "dms3_get_rgb": host_s(lambda: reg.get("DMS3").get(keys["RGB"], dom3)),
+        "dms2_get_mask": host_s(lambda: dms2.get(keys["Mask"], dom2)),
+        "dms2_get_hema": host_s(lambda: dms2.get(keys["Hema"], dom2)),
+        "dms2_put_hema": host_s(lambda: dms2.put(keys["Hema"], dom2, hema_np)),
+        "upload_rgb": host_s(lambda: torch.as_tensor(rgb_np, device=dev)),
+        "upload_hema": host_s(lambda: torch.as_tensor(hema_np, device=dev)),
+        "download_labels": host_s(lambda: kernel_out["labels"].cpu().numpy()),
+    }
+    for c in rt_counts:
+        for k in ("color_deconv", "morph_recon:calls", "ccl", "ccl:kernel_launches", "glcm"):
+            if c[k] != tile_counts[k]:
+                fail(f"the RT path launched {k} {c[k]} times, analyze_tile {tile_counts[k]}")
+        if c["morph_recon"] == 0:
+            fail("the RT path never launched the morph_recon kernel")
+    for name in ("DMS3", "DMS2"):
+        reg.get(name).close()
+    del reg
+
+    plain_walls = []
+    for rep in range(4):  # the same work: host numpy RGB in, host labels and features out
+        sync()
+        t0 = time.perf_counter()
+        res = analyze_tile(rgb_np, cfg, device=dev)
+        labels, feats = res["labels"].cpu().numpy(), res["features"].cpu().numpy()
+        wall = time.perf_counter() - t0
+        if rep:
+            plain_walls.append(wall)
+        if not np.array_equal(labels, want_labels):
+            fail("analyze_tile's labels moved between two calls")
+        del res
+    rt_med, plain_med = float(np.median(rt_walls)), float(np.median(plain_walls))
+    print(json.dumps({
+        "rt": "one partition", "shape": list(rgb_np.shape), "rt_s": rt_walls,
+        "plain_s": plain_walls, "rt_median_s": rt_med, "plain_median_s": plain_med,
+        "overhead_pct": 100.0 * (rt_med - plain_med) / plain_med,
+        "labels_equal": True, "features_equal": feats_equal, "features_max_abs_err": feat_err,
+        "launches": rt_counts[-1], "analyze_tile_launches": tile_counts,
+        "wrm_task_s": got["task_s"], "data_movement_s": moves,
+    }), flush=True)
+
+    # -- 16 partitions of 1024^2 over 3 workers, tiered stores ------------------------
+    part = h // 4
+    root = tempfile.mkdtemp(prefix="rt_tiers_")
+    try:
+        reg = make_wsi_storage(h, w, mode="tiered", tile=part, root=root)
+        got = rt_run(reg, part, 3)
+        mem_hit = {}
+        for name in ("DMS3", "DMS2"):
+            store = reg.get(name)
+            store.drain()
+            mem_hit[name] = store.tier_stats()["MEM"].hit_rate
+            store.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_objects = 0
+    for p, feats in zip(got["parts"], got["features"]):
+        (y0, x0), (y1, x1) = p.lo, p.hi
+        res = analyze_tile(rgb_np[:, y0:y1, x0:x1], cfg, device=dev)
+        if not np.array_equal(got["labels"][y0:y1, x0:x1], res["labels"].cpu().numpy()):
+            fail(f"RT labels of partition {p} differ from analyze_tile on its crop")
+        if feats.shape != tuple(res["features"].shape) or not np.allclose(
+                feats, res["features"].cpu().numpy(), rtol=FEATURE_TOL, atol=FEATURE_TOL):
+            fail(f"RT features of partition {p} differ from analyze_tile on its crop")
+        n_objects += len(feats)
+    print(json.dumps({"rt": "tiled", "partitions": len(got["parts"]), "workers": 3,
+                      "wall_s": got["wall_s"], "objects": n_objects,
+                      "mem_hit_rate": mem_hit}), flush=True)
+
+    # -- DevicePipeline: color deconvolution over 16 tiles ------------------------------
+    minv = torch.from_numpy(ref.stain_inverse()).to(dev)
+    tiles = [np.ascontiguousarray(rgb_np[:, y:y + part, x:x + part])
+             for y in range(0, h, part) for x in range(0, w, part)]
+    direct = [ops.color_deconv(torch.from_numpy(t).to(dev), minv).cpu().numpy() for t in tiles]
+    # Timed as a stream is consumed: each result dropped before the next, so
+    # its pinned buffer goes back to PyTorch's cache for the next download.
+    # Keeping all 16 (as a list does) makes every download pin fresh memory,
+    # timed once for comparison ("window2_kept").
+    pipe_walls = {}
+    for window, keep in ((1, False), (2, False), (2, True)):
+        pipe = DevicePipeline(lambda t: ops.color_deconv(t, minv), window=window, device=dev)
+        for i, out in enumerate(pipe.map(tiles)):  # the check; also warms buffers, streams
+            if not np.array_equal(out, direct[i]):
+                fail(f"DevicePipeline(window={window}) tile {i} differs from a direct call")
+        pipe.stats = dict.fromkeys(pipe.stats, 0)
+        kept = []
+        sync()
+        t0 = time.perf_counter()
+        for out in pipe.map(tiles):
+            if keep:
+                kept.append(out)
+        pipe_walls[f"window{window}" + ("_kept" if keep else "")] = time.perf_counter() - t0
+        del kept
+        if pipe.stats != {"uploaded": 16, "computed": 16, "downloaded": 16}:
+            fail(f"DevicePipeline(window={window}) stats {pipe.stats}")
+    # the host's share of a tile: pinning it, and a pinned buffer for its
+    # result from PyTorch's cache
+    tile_host_s = {
+        "pin_tile": host_s(lambda: torch.from_numpy(tiles[0]).pin_memory()),
+        "alloc_pinned_result": host_s(
+            lambda: torch.empty(tiles[0].shape, dtype=torch.float32, pin_memory=True)),
+    } if dev.type == "cuda" else {}
+    print(json.dumps({"device_pipeline": "color_deconv", "tiles": len(tiles),
+                      "tile_shape": list(tiles[0].shape), "wall_s": pipe_walls,
+                      "host_s_a_tile": tile_host_s}), flush=True)
 
 def serpentine(h: int, w: int) -> np.ndarray:
     """A 1-pixel corridor along every even row, turning at alternate ends."""

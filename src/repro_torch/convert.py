@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.wsi import WSIConfig
+from repro_torch.core.regions import host_tensor
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import HybridLM
@@ -30,15 +31,6 @@ def from_reference(
     return WSIConfig(**dict(cfg_fields)), torch.as_tensor(m, device=resolve_device(device))
 
 
-def _tensor(arr) -> torch.Tensor:
-    """numpy array -> CPU tensor; bfloat16 (``ml_dtypes``) goes through its
-    bits, since ``torch.from_numpy`` rejects that dtype."""
-    arr = np.array(arr)  # a writable copy: a JAX array's numpy view is read-only
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
-
-
 def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> HybridLM:
     """The reference's LM parameter pytree, as nested dicts of numpy arrays
     (layer stacks as ``(L, ...)`` leaves), loaded into the port's model on
@@ -48,7 +40,7 @@ def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> Hy
     seen = set()
 
     def load(dst: torch.Tensor, arr, name: str) -> None:
-        src = _tensor(arr)
+        src = host_tensor(np.asarray(arr))  # a JAX array's numpy view: copied
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: reference shape {tuple(src.shape)}, port {tuple(dst.shape)}")
         dst.copy_(src)

@@ -47,6 +47,10 @@ SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()  # one build per process, whichever thread asks first
+# The wrappers' launch counters are module globals that the runtime's worker
+# threads update at once; `+=` on a global is a read, an add and a write, not
+# atomic under the interpreter lock, so every update takes this lock.
+counter_lock = threading.Lock()
 
 
 def _nvcc() -> str:

@@ -43,7 +43,8 @@ def ccl_cuda(mask: torch.Tensor, *, events: list | None = None) -> torch.Tensor:
     with torch.cuda.device(mask.device):
         code = kernels.rt_ccl(mask.data_ptr(), labels.data_ptr(), scratch.data_ptr(), h, w,
                               handles, _build.stream(mask))
-        launches += 1
-        kernel_launches += len(PHASES)
+        with _build.counter_lock:
+            launches += 1
+            kernel_launches += len(PHASES)
     _build.check(code, "ccl")
     return labels

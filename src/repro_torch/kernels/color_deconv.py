@@ -31,6 +31,7 @@ def color_deconv_cuda(rgb: torch.Tensor, minv: torch.Tensor, eps: float = 1e-6) 
             rgb.data_ptr(), minv.data_ptr(), out.data_ptr(),
             rgb.shape[1] * rgb.shape[2], eps, _build.stream(rgb),
         )
-        launches += 1
+        with _build.counter_lock:
+            launches += 1
     _build.check(code, "color_deconv")
     return out

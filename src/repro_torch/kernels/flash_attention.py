@@ -83,8 +83,9 @@ def flash_attention_cuda(
         else:
             code = _build.lib().rt_flash_attention(
                 *ptrs, *common, int(q.dtype == torch.bfloat16), scale, *masks)
-        launches += 1
-        swa_launches += window is not None
-        instance_launches[which] += 1
+        with _build.counter_lock:
+            launches += 1
+            swa_launches += window is not None
+            instance_launches[which] += 1
     _build.check(code, f"flash_attention ({which})")
     return out

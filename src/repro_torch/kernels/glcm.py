@@ -56,6 +56,7 @@ def glcm_cuda(bins: torch.Tensor, num_bins: int, *,
         code = entry(bins.data_ptr(), glcm.data_ptr(), hist.data_ptr(), b, h, w, num_bins, stream)
         if marks:
             marks[1].record()
-        launches += 1
+        with _build.counter_lock:
+            launches += 1
     _build.check(code, "glcm")
     return glcm, hist

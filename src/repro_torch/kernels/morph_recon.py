@@ -17,6 +17,7 @@ TILE = 64  # tile side of the kernel (kTile in the source)
 ROUNDS_PER_READ = 8  # rounds launched between two host reads of the worklist count
 HEADER = 5  # state: three list counts, rounds with work, tile visits
 
+calls = 0  # wrapper calls since the last reset
 launches = 0  # round launches since the last reset
 rounds = 0  # of those, rounds that had work
 tile_visits = 0  # tiles relaxed since the last reset
@@ -28,7 +29,7 @@ def morph_recon_cuda(marker: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     Reads the worklist count on the host once every ``ROUNDS_PER_READ``
     rounds (one synchronisation each).
     """
-    global launches, rounds, tile_visits
+    global calls, launches, rounds, tile_visits
     _build.require(marker, "morph_recon marker", torch.float32, 2)
     _build.require(mask, "morph_recon mask", torch.float32, 2)
     if marker.shape != mask.shape or marker.device != mask.device:
@@ -48,11 +49,14 @@ def morph_recon_cuda(marker: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                 h, w, done, ROUNDS_PER_READ, _build.stream(mask),
             )
             _build.check(code, "morph_recon")
-            launches += ROUNDS_PER_READ
+            with _build.counter_lock:
+                launches += ROUNDS_PER_READ
             done += ROUNDS_PER_READ
             header = state[:HEADER].tolist()
             if header[done % 3] == 0:
                 break
-    rounds += header[3]
-    tile_visits += header[4]
+    with _build.counter_lock:
+        calls += 1
+        rounds += header[3]
+        tile_visits += header[4]
     return out

@@ -132,8 +132,9 @@ def ssd_scan_cuda(
             d_.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 4 * ncd, y.data_ptr(),
             hf.data_ptr(), bsz, t, h, p, g, n, chunk, int(x.dtype == torch.bfloat16),
             int(which == "tensor_core"), handles, _build.stream(x))
-        launches += 1
-        kernel_launches += len(PHASES)
-        instance_launches[which] += 1
+        with _build.counter_lock:
+            launches += 1
+            kernel_launches += len(PHASES)
+            instance_launches[which] += 1
     _build.check(code, f"ssd_scan ({which})")
     return y, hf

@@ -1,18 +1,36 @@
-"""The paper's example application, plain-function form: segmentation +
-feature computation on one tile (``repro.pipeline.wsi`` lines 37-100).
+"""The paper's example application: segmentation + feature computation on
+one tile (``repro.pipeline.wsi``), in its two forms:
 
-Every step runs on one device, from deconvolution to features: the CUDA
-card unless the caller passes ``device="cpu"``. ``impl`` is passed to
-``kernels.ops`` (``"auto"``: the kernels on the card, the plain versions on
-the CPU; ``"torch"``: the plain versions anywhere).
+  * plain functions (``segment_tile``, ``compute_features``,
+    ``analyze_tile``) — the "non-RT" baseline of Fig. 11;
+  * region-template stages (``SegmentationStage``, ``FeatureStage``) —
+    the RT-based version whose fine-grain operations flow through the WRM
+    with per-op speedup estimates (PATS-able), and whose data moves through
+    global storage (``make_wsi_storage``).
+
+Both forms run the same steps (``_normalize``, ``_threshold``,
+``_open``, ``_nucleus_mask`` below), so on one device their labels agree
+bit for bit. Every step runs on one device, from deconvolution to features:
+the CUDA card unless the caller passes ``device="cpu"``. ``impl`` is passed
+to ``kernels.ops`` (``"auto"``: the kernels on the card, the plain versions
+on the CPU; ``"torch"``: the plain versions anywhere).
 """
 from __future__ import annotations
 
+import os
+import tempfile
+from typing import Any
+
+import numpy as np
 import torch
 
-from repro_torch.configs.wsi import WSIConfig
+from repro_torch.configs.wsi import PAPER_OP_COSTS, PAPER_OP_SPEEDUPS, WSIConfig
+from repro_torch.core import BoundingBox, RegionKind, StorageRegistry
+from repro_torch.core.regions import to_numpy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.runtime.dag import Stage, Task, TaskCost
+from repro_torch.storage import DistributedMemoryStorage, PlacementPolicy, TieredStore
 
 
 def _stain_inverse(minv, device: torch.device) -> torch.Tensor:
@@ -20,19 +38,42 @@ def _stain_inverse(minv, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(m, dtype=torch.float32, device=device)
 
 
-def segment_mask(raw: torch.Tensor, impl: str = "auto") -> dict:
-    """Thresholded (H, W) float 0/1 mask -> {"mask", "labels"}: fill holes,
-    reconstruction opening, connected components."""
-    filled = ops.fill_holes(raw, impl=impl)
-    # morphological reconstruction opening: erode-ish marker then rebuild
-    # (torch.roll wraps around the tile edge, as jnp.roll does)
+# ---------------------------------------------------------------------------
+# The steps both forms run
+# ---------------------------------------------------------------------------
+def _normalize(hema: torch.Tensor) -> torch.Tensor:
+    """Hematoxylin density -> [0, 1] between its 5th and 99.5th percentiles."""
+    h_lo, h_hi = ref.percentile(hema, (5.0, 99.5))
+    return torch.clamp((hema - h_lo) / torch.clamp(h_hi - h_lo, min=1e-6), 0.0, 1.0)
+
+
+def _threshold(hema_n: torch.Tensor, cfg: WSIConfig) -> torch.Tensor:
+    return (hema_n > cfg.seg_threshold).to(torch.float32)
+
+
+def _open(filled: torch.Tensor, impl: str) -> torch.Tensor:
+    """Morphological reconstruction opening: erode-ish marker then rebuild
+    (torch.roll wraps around the tile edge, as jnp.roll does)."""
     marker = torch.minimum(
         filled,
         torch.roll(filled, 1, -1) * torch.roll(filled, -1, -1)
         * torch.roll(filled, 1, -2) * torch.roll(filled, -1, -2),
     )
-    opened = ops.morph_recon(marker, filled, impl=impl)
-    mask = (opened > 0.5).to(torch.int32)
+    return ops.morph_recon(marker, filled, impl=impl)
+
+
+def _nucleus_mask(opened: torch.Tensor) -> torch.Tensor:
+    return (opened > 0.5).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain (non-RT) pipeline functions
+# ---------------------------------------------------------------------------
+def segment_mask(raw: torch.Tensor, impl: str = "auto") -> dict:
+    """Thresholded (H, W) float 0/1 mask -> {"mask", "labels"}: fill holes,
+    reconstruction opening, connected components."""
+    filled = ops.fill_holes(raw, impl=impl)
+    mask = _nucleus_mask(_open(filled, impl))
     labels = ops.connected_components(mask, impl=impl)
     return {"mask": mask, "labels": labels}
 
@@ -47,12 +88,8 @@ def segment_tile(
     dev = resolve_device(device)
     rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
     stains = ops.color_deconv(rgb, _stain_inverse(minv, dev), impl=impl)
-    hema = stains[0]  # hematoxylin density (nuclei stain)
-    # normalize to [0,1] for thresholding
-    h_lo, h_hi = ref.percentile(hema, (5.0, 99.5))
-    hema_n = torch.clamp((hema - h_lo) / torch.clamp(h_hi - h_lo, min=1e-6), 0.0, 1.0)
-    raw = (hema_n > cfg.seg_threshold).to(torch.float32)
-    return {**segment_mask(raw, impl=impl), "hematoxylin": hema_n}
+    hema_n = _normalize(stains[0])  # hematoxylin density (nuclei stain)
+    return {**segment_mask(_threshold(hema_n, cfg), impl=impl), "hematoxylin": hema_n}
 
 
 def extract_object_rois(
@@ -115,3 +152,266 @@ def analyze_tile(
     feats = compute_features(rois, cfg, impl, device=device)
     return {**seg, "rois": rois, "boxes": boxes, "features": feats}
 
+
+# ---------------------------------------------------------------------------
+# Storage wiring: flat DMS baseline vs. opt-in tiered hierarchy
+# ---------------------------------------------------------------------------
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported (ROADMAP queue 1, item 4)")
+
+
+def make_wsi_storage(
+    h: int,
+    w: int,
+    *,
+    mode: str = "dms",
+    transport: str = "inproc",
+    registry: StorageRegistry | None = None,
+    root: str | None = None,
+    tile: int | None = None,
+    num_servers: int = 4,
+    server_processes: int = 2,
+    endpoints=None,
+    replication: int = 1,
+    repair=None,
+    wire_codec=None,
+    membership=None,
+    mem_capacity_bytes: int = 64 << 20,
+    write_policy: str = "write_through",
+    policy: PlacementPolicy | None = None,
+    promote_after: int = 2,
+    serve=False,
+    compute=False,
+) -> StorageRegistry:
+    """Build the storage backing the WSI stages under the canonical names
+    ("DMS3" for the (3, H, W) RGB volume, "DMS2" for the 2-D mask/hema
+    domain), so stage bindings never change.
+
+    ``mode="dms"`` is the paper baseline (one DMS per domain);
+    ``mode="tiered"`` swaps in :class:`TieredStore` stacks (bounded RAM
+    -> DISK -> DMS) behind the same names — the opt-in hierarchy with
+    zero call-site changes.  In tiered mode the DISK tiers live under
+    ``root`` (subdirs per store); the default is a fresh
+    ``tempfile.mkdtemp`` the caller owns.
+
+    The signature is ``repro.pipeline.make_wsi_storage``'s.  The DMS
+    servers are in-process shards (``transport="inproc"``);
+    ``replication=R`` places each block on R of them, ``repair=`` starts
+    the stores' anti-entropy sweep (``True`` for 30 s, or an interval in
+    seconds) and ``membership`` seeds their elastic ring.  The socket and
+    shared-memory transports (``transport="socket"``/``"shm"``,
+    ``endpoints=``, ``wire_codec=``, ``server_processes``) and the serving
+    gateway and near-data compute (``serve=``, ``compute=``) are not
+    ported yet: asking for them raises ``NotImplementedError``.
+    """
+    if transport not in ("inproc", "socket", "shm"):
+        raise ValueError(
+            f"unknown transport {transport!r} (want 'inproc' | 'socket' | 'shm')"
+        )
+    if transport != "inproc":
+        raise _not_ported(f"transport={transport!r}")
+    for name, value in (("endpoints=", endpoints), ("wire_codec=", wire_codec),
+                        ("serve=", serve), ("compute=", compute)):
+        if value is not None and value is not False:
+            raise _not_ported(name)
+    registry = registry or StorageRegistry()
+    dom3 = BoundingBox((0, 0, 0), (3, h, w))
+    dom2 = BoundingBox((0, 0), (h, w))
+    blk = tile or max(h, w)
+    if repair is True:
+        repair = 30.0
+    repair_interval = None if not repair else float(repair)
+
+    if mode == "dms":
+        for sname, dom, bshape in (
+            ("DMS3", dom3, (3, blk, blk)),
+            ("DMS2", dom2, (blk, blk)),
+        ):
+            dms = DistributedMemoryStorage(
+                dom, bshape, num_servers, name=sname,
+                replication=replication, membership=membership,
+            )
+            if repair_interval is not None:
+                dms.start_auto_repair(repair_interval)
+            registry.register(dms)
+    elif mode == "tiered":
+        root = root or tempfile.mkdtemp(prefix="wsi_tiers_")
+        for name, dom, bshape in (
+            ("DMS3", dom3, (3, blk, blk)),
+            ("DMS2", dom2, (blk, blk)),
+        ):
+            registry.register(
+                TieredStore.standard(
+                    dom,
+                    bshape,
+                    root=os.path.join(root, name.lower()),
+                    name=name,
+                    mem_capacity_bytes=mem_capacity_bytes,
+                    num_servers=num_servers,
+                    write_policy=write_policy,
+                    policy=policy,
+                    promote_after=promote_after,
+                    replication=replication,
+                    repair_interval=repair_interval,
+                    membership=membership,
+                )
+            )
+    else:
+        raise ValueError(f"unknown storage mode {mode!r} (want 'dms' | 'tiered')")
+    return registry
+
+
+# ---------------------------------------------------------------------------
+# Region-template stages (paper Fig. 8)
+# ---------------------------------------------------------------------------
+def _task_cost(op: str, scale: float = 1.0, input_bytes: int = 0) -> TaskCost:
+    return TaskCost(
+        cpu_s=PAPER_OP_COSTS.get(op, 1.0) * scale,
+        speedup=PAPER_OP_SPEEDUPS.get(op, 1.0),
+        input_bytes=input_bytes,
+    )
+
+
+class SegmentationStage(Stage):
+    """Reads "RGB", produces "Mask" (the labels) and "Hema".
+
+    Its fine-grain operations run on ``device`` (``None``: the CUDA card;
+    raises at construction without one unless ``device="cpu"``), whichever
+    WRM thread takes them: both task variants do the same work there.
+    """
+
+    def __init__(self, cfg: WSIConfig | None = None, impl: str = "auto", device=None) -> None:
+        super().__init__("Segmentation")
+        self.cfg = cfg or WSIConfig()
+        self.impl = impl
+        self.device = resolve_device(device)
+
+    def run(self, ctx) -> Any:
+        dev = self.device
+        rgb_region = ctx.region("Patient", "RGB")
+        rgb = torch.as_tensor(rgb_region.data, device=dev)
+        rt = self.get_region_template("Patient")
+        roi = rgb_region.roi
+        # mask/hema live on the spatial (H, W) domain; drop the channel axis
+        spatial = (
+            roi
+            if roi.rank == 2
+            else BoundingBox(roi.lo[-2:], roi.hi[-2:], roi.t_lo, roi.t_hi)
+        )
+        mask_region = rt.new_region(
+            "Mask", spatial, np.int32, timestamp=rgb_region.key.timestamp
+        )
+        hema_region = rt.new_region(
+            "Hema", spatial, np.float32, timestamp=rgb_region.key.timestamp
+        )
+
+        results: dict[str, Any] = {}
+
+        def op(name, fn, deps=(), region_key=None, input_bytes=0):
+            def work():
+                results[name] = fn()
+
+            return ctx.submit(
+                Task(
+                    name,
+                    cpu_fn=work,
+                    accel_fn=work,
+                    deps=list(deps),
+                    cost=_task_cost(name, input_bytes=input_bytes),
+                    region_key=region_key,
+                )
+            )
+
+        t_deconv = op(
+            "Color deconv.",
+            lambda: ops.color_deconv(rgb, _stain_inverse(None, dev), impl=self.impl),
+            region_key=rgb_region.key,
+            input_bytes=rgb_region.nbytes,
+        )
+
+        def threshold():
+            results["hema_n"] = _normalize(results["Color deconv."][0])
+            return _threshold(results["hema_n"], self.cfg)
+
+        t_thr = op("AreaThreshold", threshold, deps=[t_deconv])
+        t_fill = op(
+            "FillHolles",
+            lambda: ops.fill_holes(results["AreaThreshold"], impl=self.impl),
+            deps=[t_thr],
+        )
+        t_recon = op(
+            "ReconToNuclei", lambda: _open(results["FillHolles"], self.impl), deps=[t_fill]
+        )
+        t_label = op(
+            "BWLabel",
+            lambda: ops.connected_components(
+                _nucleus_mask(results["ReconToNuclei"]), impl=self.impl
+            ),
+            deps=[t_recon],
+        )
+
+        def finalize():
+            mask_region.set_data(to_numpy(results["BWLabel"]))
+            hema_region.set_data(to_numpy(results["hema_n"]))
+
+        ctx.submit(Task("stage-finalize", cpu_fn=finalize, deps=[t_label],
+                        cost=TaskCost(cpu_s=0.05)))
+        return None
+
+
+class FeatureStage(Stage):
+    """Reads "Mask"+"Hema", produces the "Features" object set, on
+    ``device`` as :class:`SegmentationStage` does."""
+
+    def __init__(self, cfg: WSIConfig | None = None, impl: str = "auto", device=None) -> None:
+        super().__init__("FeatureComputation")
+        self.cfg = cfg or WSIConfig()
+        self.impl = impl
+        self.device = resolve_device(device)
+
+    def run(self, ctx) -> Any:
+        dev = self.device
+        mask_region = ctx.region("Patient", "Mask")
+        hema_region = ctx.region("Patient", "Hema")
+        rt = self.get_region_template("Patient")
+        feat_region = rt.new_region(
+            "Features",
+            mask_region.roi,
+            np.float32,
+            kind=RegionKind.OBJECTSET,
+            timestamp=mask_region.key.timestamp,
+        )
+        results: dict[str, Any] = {}
+
+        def rois():
+            results["rois"], results["boxes"] = extract_object_rois(
+                torch.as_tensor(mask_region.data, device=dev),
+                torch.as_tensor(hema_region.data, device=dev),
+                self.cfg,
+                device=dev,
+            )
+
+        t_rois = ctx.submit(
+            Task(
+                "ObjectROIs",
+                cpu_fn=rois,
+                cost=_task_cost(
+                    "BWLabel",
+                    input_bytes=mask_region.nbytes + hema_region.nbytes,
+                ),
+                region_key=mask_region.key,
+            )
+        )
+
+        def feats():
+            f = compute_features(results["rois"], self.cfg, self.impl, device=dev)
+            feat_region.set_data({
+                "features": to_numpy(f),
+                "boxes": to_numpy(results["boxes"]),
+            })
+
+        ctx.submit(
+            Task("Features", cpu_fn=feats, accel_fn=feats, deps=[t_rois],
+                 cost=_task_cost("Features"))
+        )
+        return None

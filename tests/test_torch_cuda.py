@@ -538,3 +538,72 @@ def test_hybrid_generate_cuda_matches_plain(dev):
     assert flash_attention.swa_launches == before[1] + 2  # the two SWA layers
     want = generate(model, cfg.replace(attn_impl="torch"), prompt, max_new=8)
     assert torch.equal(got, want)
+
+
+def test_rt_two_stage_pipeline_cuda_matches_analyze_tile(dev):
+    """Segmentation -> Features under the runtime, on the card at 512^2: the
+    labels read back from DMS2 equal ``analyze_tile``'s bit for bit."""
+    from repro_torch.core import BoundingBox, Intent, RegionTemplate
+    from repro_torch.pipeline import FeatureStage, SegmentationStage, make_wsi_storage
+    from repro_torch.runtime import SysEnv
+
+    rgb, _ = make_tile(512, num_nuclei=40, seed=4)
+    cfg = WSIConfig(nucleus_roi=32)
+    want = analyze_tile(rgb, cfg)
+    dom3, dom2 = BoundingBox((0, 0, 0), (3, 512, 512)), BoundingBox((0, 0), (512, 512))
+    reg = make_wsi_storage(512, 512)
+    rt = RegionTemplate("Patient")
+    rgb_region = rt.new_region("RGB", dom3, np.float32, input_storage="DMS3", lazy=True)
+    reg.get("DMS3").put(rgb_region.key, dom3, rgb)
+    env = SysEnv(num_workers=1, cpus_per_worker=2, accels_per_worker=1, registry=reg)
+    seg, feat = SegmentationStage(cfg), FeatureStage(cfg)
+    seg.add_region_template(rt, "RGB", dom3, Intent.INPUT, read_storage="DMS3")
+    for name in ("Mask", "Hema"):
+        seg.add_region_template(rt, name, dom2, Intent.OUTPUT, storage="DMS2")
+        feat.add_region_template(rt, name, dom2, Intent.INPUT, read_storage="DMS2")
+    feat.add_dependency(seg)
+    env.execute_component(seg)
+    env.execute_component(feat)
+    env.startup_execution()
+    env.finalize_system()
+    labels = reg.get("DMS2").get(seg.templates["Patient"].get("Mask").key, dom2)
+    np.testing.assert_array_equal(labels, want["labels"].cpu().numpy())
+    got = feat.templates["Patient"].get("Features").data
+    np.testing.assert_allclose(got["features"], want["features"].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_data_region_to_device_cuda(dev):
+    """An upload from pinned memory, marked by an event that ``ready``
+    queries and ``block_until_ready`` waits on."""
+    from repro_torch.core import BoundingBox, RegionTemplate
+
+    data = np.random.default_rng(0).random((2048, 2048), dtype=np.float32)
+    region = RegionTemplate("P").new_region("X", BoundingBox((0, 0), data.shape), np.float32,
+                                            data=data)
+    assert region.location == "host" and region.ready()
+    arr = region.to_device()
+    assert arr.is_cuda and region.location == "device"
+    region.block_until_ready()
+    assert region.ready()
+    np.testing.assert_array_equal(arr.cpu().numpy(), data)
+    np.testing.assert_array_equal(region.to_host(), data)
+    assert region.location == "host"
+    bf = torch.arange(6, dtype=torch.bfloat16).reshape(2, 3).cuda()
+    region.set_data(bf)
+    assert region.location == "device"
+    assert torch.equal(region.to_device(blocking=True), bf)
+
+
+def test_device_pipeline_cuda_matches_direct_calls(dev):
+    from repro_torch.runtime import DevicePipeline
+
+    minv = _t(ref.stain_inverse(), dev)
+    rng = np.random.default_rng(5)
+    tiles = [rng.random((3, 256, 384), dtype=np.float32) for _ in range(6)]
+    pipe = DevicePipeline(lambda t: ops.color_deconv(t, minv), window=2)
+    outs = list(pipe.map(tiles))
+    assert pipe.stats == {"uploaded": 6, "computed": 6, "downloaded": 6}
+    for t, got in zip(tiles, outs):
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, ops.color_deconv(_t(t, dev), minv).cpu().numpy())

@@ -15,6 +15,17 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+# the region store, the runtime and the RT half of the WSI pipeline
+RUNTIME_SLICE = (
+    "repro_torch.core.bbox", "repro_torch.core.hilbert", "repro_torch.core.pacing",
+    "repro_torch.core.regions", "repro_torch.storage.membership",
+    "repro_torch.storage.placement", "repro_torch.storage.disk", "repro_torch.storage.tiers",
+    "repro_torch.storage.dms", "repro_torch.storage.codec", "repro_torch.runtime.dag",
+    "repro_torch.runtime.scheduler", "repro_torch.runtime.manager",
+    "repro_torch.runtime.prefetch", "repro_torch.pipeline.wsi",
+)
+
+
 def _port_modules():
     mods = []
     for path in sorted(PORT.rglob("*.py")):
@@ -34,14 +45,15 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                 "repro_torch.models.layers", "repro_torch.models.transformer",
                 "repro_torch.models.registry", "repro_torch.configs.registry",
                 "repro_torch.configs.hymba_1_5b", "repro_torch.serve.step",
-                "repro_torch.launch.serve", "repro_torch.convert"):
+                "repro_torch.launch.serve", "repro_torch.convert", *RUNTIME_SLICE):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "             or m == 'repro' or m.startswith('repro.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -64,13 +76,22 @@ def _imported_roots(path: Path):
 def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_lm_torch.py",
-        ROOT / "examples" / "serve_lm_torch.py",
+        ROOT / "examples" / "serve_lm_torch.py", ROOT / "examples" / "wsi_pipeline_torch.py",
+        ROOT / "examples" / "quickstart_torch.py",
     ]
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & {"jax", "jaxlib", "repro"})
         for f in files
     }
     assert {f: r for f, r in offenders.items() if r} == {}
+
+
+def test_relint_is_clean_on_the_port():
+    """The port carries copies of the locking code of the region store and
+    the runtime; the concurrency lint checks them as it checks ``repro``."""
+    proc = subprocess.run([sys.executable, "-m", "tools.relint", "src/repro_torch"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_entry_points_raise_without_cuda():
