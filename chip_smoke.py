@@ -27,6 +27,15 @@ Phases, each fatal on failure:
      workers on tiered stores, each held bit for bit against ``analyze_tile``
      on its crop; then ``DevicePipeline`` mapping color deconvolution over 16
      tiles with windows 1 and 2, held bit for bit against direct calls;
+  4c. run the WSI path in its near-data form: every standard kernel chain
+     (and GLCM at 256 bins) through ``RegionGateway.compute`` over tiered
+     stores whose DMS tier lives on spawned server processes behind the
+     shared-memory transport, at 4096^2; each held bit for bit against the
+     same chain run locally, stage by stage against the plain versions, and
+     its launch counts against its stages; 16 overlapping ROIs from 4
+     client threads must coalesce into fewer window fetches; every repeat
+     must be a derived-cache hit that launches nothing; GLCM at B = 1
+     (the chains' one window) is timed at 32 and 256 bins;
   5. hold the LM path's two kernels (flash attention, SSD scan) against
      their plain versions at Hymba-1.5B's prefill shapes, in bfloat16 and
      float32, and time them beside the plain versions and a library call;
@@ -89,6 +98,25 @@ E2E_LOGIT_TOL = 1e-3
 E2E_DECODE_STEPS = 8
 PHASE_SLEEP_CYCLES = 2_000_000  # about 1 ms of device time ahead of a timed call
 CCL_WORST = (4095, 4096)  # CCL's worst cases: a serpentine and a full mask through every tile
+# Phase 4c, the near-data chains: the gateways' stores on 4 DMS servers in 2
+# processes behind the shm transport; a derived-cache budget that holds a
+# 4096^2 int32 label array (67 MB; the default 64 MB drops it); 16 ROIs of
+# 1024^2 at stride 768 from 4 client threads
+NEAR_DATA_SERVERS = 4
+NEAR_DATA_SERVER_PROCESSES = 2
+NEAR_DATA_CACHE_BYTES = 512 << 20
+NEAR_DATA_ROI, NEAR_DATA_ROI_STRIDE, NEAR_DATA_ROI_GRID, NEAR_DATA_CLIENTS = 1024, 768, 4, 4
+# the launches each stage makes ("phases": CCL's three a call)
+NEAR_DATA_STAGE_COUNTS = {
+    "deconv": {"color_deconv": 1}, "threshold": {}, "fill": {"morph_recon:calls": 1},
+    "ccl": {"ccl": 1, "ccl:kernel_launches": "phases"}, "count": {}, "glcm": {"glcm": 1},
+}
+# features from bit-equal counts; the relative tolerance the chains' features
+# are held to
+CHAIN_FEATURE_RTOL = 1e-5
+FIXED_POINT_ITERS = 100_000  # the plain reconstruction and CCL, run to their fixed points
+NEAR_DATA_PLAIN_BAND_ROWS = 64  # the plain GLCM band by band: 0.5 GB of one-hot at 256 bins
+GLCM_B1_BINS = (32, GLCM_WIDE_BINS)
 
 
 def fail(msg: str) -> None:
@@ -442,6 +470,11 @@ def main() -> None:
     # -- 4b. the RT path -----------------------------------------------------------
     rt_phases(torch, dev, sync, rgb_np, cfg, out, launches)
 
+    # -- 4c. the near-data chains behind the gateways -----------------------------
+    hema_np = near_data_phases(torch, dev, sync, rgb_np)
+    glcm_b1 = glcm_b1_records(torch, dev, time_ms, bound, hema_np)
+    del hema_np
+
     # -- 5.-7. the LM path -----------------------------------------------------
     del rgb, minv, k_st, p_st, out, plain, seg
     lm_rec, lm_launches = lm_phases(torch, dev, time_ms, sync, modules)
@@ -475,6 +508,8 @@ def main() -> None:
     for worst in ccl_worst:
         print(json.dumps(worst))
     print(json.dumps(glcm_wide))
+    for r in glcm_b1:
+        print(json.dumps(r))
     # the LM kernels' entries are their bf16 (the path's dtype) measurements;
     # attention has one entry for the SWA layers' calls and one for the global
     rec.update({name: lm_rec[f"{kernel}:bf16{variant}"] for name, kernel, variant in (
@@ -735,6 +770,378 @@ def rt_phases(torch, dev, sync, rgb_np: np.ndarray, cfg, kernel_out: dict,
     print(json.dumps({"device_pipeline": "color_deconv", "tiles": len(tiles),
                       "tile_shape": list(tiles[0].shape), "wall_s": pipe_walls,
                       "host_s_a_tile": tile_host_s}), flush=True)
+
+
+def near_data_phases(torch, dev, sync, rgb_np: np.ndarray) -> np.ndarray:
+    """Phase 4c: the WSI path's third form, the near-data kernel chains
+    served by ``RegionGateway``s over tiered stores whose DMS tier sits on
+    spawned server processes behind the shared-memory transport. Every
+    standard chain runs cold over the whole partition, is held bit for bit
+    against the same chain run locally on ``store.get`` of the same ROI and
+    stage by stage against the plain versions, and must move the launch
+    counters as its stages say; 16 overlapping ROIs from 4 client threads
+    must coalesce into fewer window fetches; every repeat must be a derived-
+    cache hit that launches nothing. Returns the hematoxylin plane that the
+    rank-2 chains read."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core import BoundingBox, ElementType, RegionKey
+    from repro_torch.kernels import ccl as ccl_mod
+    from repro_torch.kernels import color_deconv as cd_mod
+    from repro_torch.kernels import glcm as glcm_mod
+    from repro_torch.kernels import morph_recon as mr_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.chains import STANDARD_CHAINS, resolve_chain
+    from repro_torch.pipeline import make_wsi_storage
+    from repro_torch.serve import GatewayConfig
+    from repro_torch.serve import compute as compute_mod
+
+    _, h, w = rgb_np.shape
+    dom3 = BoundingBox((0, 0, 0), (3, h, w))
+    dom2 = BoundingBox((0, 0), (h, w))
+    rgb_key = RegionKey("Patient", "RGB", ElementType.FLOAT32, 0)
+    hema_key = RegionKey("Patient", "Hema", ElementType.FLOAT32, 0)
+
+    def reset_counts() -> None:
+        for mod in (cd_mod, mr_mod, ccl_mod, glcm_mod):
+            mod.launches = 0
+        mr_mod.calls = mr_mod.rounds = mr_mod.tile_visits = 0
+        ccl_mod.kernel_launches = 0
+
+    def counts() -> dict:
+        return {"color_deconv": cd_mod.launches, "morph_recon:calls": mr_mod.calls,
+                "morph_recon": mr_mod.launches, "ccl": ccl_mod.launches,
+                "ccl:kernel_launches": ccl_mod.kernel_launches, "glcm": glcm_mod.launches}
+
+    def expected_counts(chain, n: int = 1) -> dict:
+        """What ``n`` runs of ``chain`` launch, by its stages; the
+        reconstruction's launches (its rounds) are checked apart."""
+        want = dict.fromkeys(counts(), 0)
+        for stage in chain.stages:
+            for k, v in NEAR_DATA_STAGE_COUNTS[stage.name].items():
+                want[k] += n * (len(ccl_mod.PHASES) if v == "phases" else v)
+        return want
+
+    def check_counts(what: str, got: dict, want: dict) -> None:
+        recon = got.pop("morph_recon")
+        if got != {k: v for k, v in want.items() if k != "morph_recon"}:
+            fail(f"{what} launched {got}, its stages say {want}")
+        if (recon > 0) != (want["morph_recon:calls"] > 0):
+            fail(f"{what} made {recon} reconstruction launches in "
+                 f"{want['morph_recon:calls']} calls")
+        got["morph_recon"] = recon
+
+    # the plain versions on the card, stage by stage, each on the kernel
+    # path's own input to that stage; the reconstruction and CCL run to their
+    # fixed points (checked), GLCM's counts band by band (a whole 4096^2
+    # window's one-hot matrices at 256 bins would take 34 GB)
+    def plain_glcm(bins: torch.Tensor, nb: int) -> tuple[torch.Tensor, torch.Tensor]:
+        g, hh = ref.glcm_bands_ref(bins, nb, NEAR_DATA_PLAIN_BAND_ROWS)
+        return g.sum(dim=-3), hh.sum(dim=-2)
+
+    def plain_stage(stage, x, params):
+        if stage.name == "fill":
+            seed, inv = ref.fill_holes_seed(x.to(torch.float32))
+            rec = ref.morph_recon_ref(seed, inv, max_iters=FIXED_POINT_ITERS)
+            if not torch.equal(ref.morph_recon_sweep_ref(rec, inv), rec):
+                fail("the plain fill-holes did not reach its fixed point")
+            return ((1.0 - rec) > 0.5).to(torch.uint8)
+        if stage.name == "ccl":
+            m = (x != 0).to(torch.int32)
+            lab = ops.connected_components(m, impl="torch", max_iters=FIXED_POINT_ITERS)
+            mb = m != 0
+            fixed = torch.where(mb, lab, torch.full_like(lab, torch.iinfo(torch.int32).max))
+            if not torch.equal(ref.ccl_sweep_ref(fixed, mb), fixed):
+                fail("the plain ccl did not reach its fixed point")
+            return lab
+        if stage.name == "glcm":
+            nb = params["num_bins"]
+            g, hh = plain_glcm(ref.quantize_ref(x.to(torch.float32), nb)[None], nb)
+            return torch.cat([ref.glcm_features_ref(g), ref.histogram_features_ref(hh)], -1)[0]
+        return stage.fn(x, params, "torch")
+
+    def stage_tol(stage, params) -> dict | None:
+        """allclose tolerances of a stage's output, None for bit-exact."""
+        if stage.name == "deconv":
+            return dict(rtol=DECONV_TOL, atol=DECONV_TOL)
+        if stage.name == "glcm":
+            return dict(rtol=CHAIN_FEATURE_RTOL, atol=0.0)
+        return None
+
+    plain_checked: dict[tuple, float] = {}
+
+    def check_plain(chain, source: str, x: torch.Tensor, local: np.ndarray) -> dict:
+        """Holds each device stage of ``chain`` against its plain version on
+        the same input (the kernel path's output of the stage before), and
+        the composed result against ``local``; returns each stage's max
+        |err|. Stages already checked on the same input are skipped."""
+        params = chain.params_dict
+        errs = {}
+        prefix = source
+        for stage in chain.stages:
+            if stage.host:
+                x = stage.fn(x.cpu().numpy(), params, "auto")
+                break
+            prefix += f"|{stage.name}:{sorted((k, params[k]) for k in stage.params)}"
+            y = stage.fn(x, params, "auto")
+            if prefix not in plain_checked:
+                p = plain_stage(stage, x, params)
+                tol = stage_tol(stage, params)
+                if y.shape != p.shape or y.dtype != p.dtype:
+                    fail(f"{chain.name}: stage {stage.name} gives {tuple(y.shape)} {y.dtype}, "
+                         f"its plain version {tuple(p.shape)} {p.dtype}")
+                if tol is None and not torch.equal(y, p):
+                    fail(f"{chain.name}: stage {stage.name} differs from its plain version at "
+                         f"{int((y != p).sum())} elements")
+                err = (y.double() - p.double()).abs().max().item() if y.numel() else 0.0
+                if tol is not None and not torch.allclose(y, p, **tol):
+                    fail(f"{chain.name}: stage {stage.name} differs from its plain version "
+                         f"by {err}")
+                if stage.name == "glcm":  # and the counts behind the features, exactly
+                    nb = params["num_bins"]
+                    bins = ref.quantize_ref(x.to(torch.float32), nb)[None].contiguous()
+                    kg, kh = ops.glcm_histogram(bins, nb)
+                    pg, ph = plain_glcm(bins, nb)
+                    if not (torch.equal(kg, pg) and torch.equal(kh, ph)):
+                        fail(f"{chain.name}: GLCM counts at B = 1, {nb} bins, differ from "
+                             f"the plain version's")
+                plain_checked[prefix] = err
+            errs[stage.name] = plain_checked[prefix]
+            x = y
+        composed = x if isinstance(x, np.ndarray) else x.cpu().numpy()
+        if composed.dtype != local.dtype or not np.array_equal(composed, local):
+            fail(f"{chain.name}: the stages one by one differ from the local chain")
+        return errs
+
+    pipelines: list = []
+
+    class RecordedPipeline(compute_mod.DevicePipeline):
+        """The engine's pipeline, kept for its stats."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            pipelines.append(self)
+
+    root = tempfile.mkdtemp(prefix="near_data_")
+    reg = None
+    pipeline_class = compute_mod.DevicePipeline
+    compute_mod.DevicePipeline = RecordedPipeline
+    try:
+        t0 = time.perf_counter()
+        reg = make_wsi_storage(h, w, mode="tiered", transport="shm", root=root,
+                               server_processes=NEAR_DATA_SERVER_PROCESSES,
+                               num_servers=NEAR_DATA_SERVERS,
+                               serve=GatewayConfig(compute_cache_bytes=NEAR_DATA_CACHE_BYTES),
+                               compute=True, device=dev)
+        setup_s = time.perf_counter() - t0
+        gw3, gw2 = reg.get("DMS3"), reg.get("DMS2")
+        t0 = time.perf_counter()
+        gw3.put(rgb_key, dom3, rgb_np)
+        hema_np = resolve_chain("deconv")(rgb_np, device=dev)  # the hematoxylin plane
+        gw2.put(hema_key, dom2, hema_np)
+        put_s = time.perf_counter() - t0
+        sources = {"rgb": (gw3, rgb_key, dom3), "hema": (gw2, hema_key, dom2)}
+        print(f"near-data: {reg.server_group.num_servers} DMS servers in "
+              f"{len(reg.server_group.procs)} processes (shm), gateways up in {setup_s:.1f} s, "
+              f"RGB {rgb_np.shape} and hematoxylin {hema_np.shape} put in {put_s:.1f} s",
+              flush=True)
+
+        requests = [(name, None) for name in STANDARD_CHAINS]
+        requests.append(("glcm", {"num_bins": GLCM_WIDE_BINS}))
+
+        def source_of(chain) -> str:
+            return "rgb" if 3 in chain.in_ranks else "hema"
+
+        # -- each chain cold, over the whole partition ----------------------------
+        rows, cold_out = [], {}
+        for name, params in requests:
+            chain = resolve_chain(name, params)
+            src = source_of(chain)
+            gw, key, roi = sources[src]
+            stats0 = gw.engine.chain_stats.as_dict().get(chain.name, {})
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            out = gw.compute(key, roi, name, params)
+            cold_s = time.perf_counter() - t0
+            got_counts = counts()
+            check_counts(f"the cold {chain.name} {params or ''}", got_counts,
+                         expected_counts(chain))
+            raw = gw.store.get(key, roi)
+            sync()
+            t0 = time.perf_counter()
+            local = chain(raw, impl="auto", device=dev)
+            local_s = time.perf_counter() - t0
+            if out.dtype != local.dtype or not np.array_equal(out, local):
+                fail(f"gateway compute({chain.name}) differs from the local chain on the "
+                     f"same ROI")
+            stage_err = check_plain(chain, src, torch.as_tensor(raw, device=dev), local)
+            row = gw.engine.chain_stats.as_dict()[chain.name]
+            cold_out[(name, chain.digest())] = out
+            rows.append(dict(
+                chain=chain.name, params=params or {}, source=src, shape=list(out.shape),
+                cold_ms=cold_s * 1e3, local_ms=local_s * 1e3, launches=got_counts,
+                raw_bytes=row["raw_bytes"] - stats0.get("raw_bytes", 0),
+                derived_bytes=row["derived_bytes"] - stats0.get("derived_bytes", 0),
+                plain_max_abs_err=stage_err,
+            ))
+            del raw, local
+
+        # -- 16 overlapping 1024^2 ROIs from 4 client threads, coalesced ----------
+        name = "deconv|threshold|ccl"
+        chain = resolve_chain(name)
+        side, stride = NEAR_DATA_ROI, NEAR_DATA_ROI_STRIDE
+        starts = [i * stride for i in range(NEAR_DATA_ROI_GRID)]
+        rois = [BoundingBox((0, y, x), (3, y + side, x + side)) for y in starts for x in starts]
+        tickets: list = [None] * len(rois)
+        errors: list = []
+
+        def client(i: int) -> None:
+            try:
+                for j in range(i, len(rois), NEAR_DATA_CLIENTS):
+                    tickets[j] = gw3.submit_compute(rgb_key, rois[j], name)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        before = gw3.stats.as_dict()
+        gw3.pause()  # the burst queues, so that one drain coalesces it
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(NEAR_DATA_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        if errors or any(t is None for t in tickets):
+            fail(f"coalesced batch: submission failed: {errors}")
+        reset_counts()
+        pipelines.clear()
+        sync()
+        t0 = time.perf_counter()
+        gw3.resume()
+        outs = [t.result(300) for t in tickets]
+        batch_s = time.perf_counter() - t0
+        batch_counts = counts()
+        after = gw3.stats.as_dict()
+        windows = after["compute_windows"] - before["compute_windows"]
+        check_counts("the coalesced batch", batch_counts, expected_counts(chain, len(rois)))
+        if windows >= len(rois):
+            fail(f"{len(rois)} overlapping ROIs took {windows} window fetches")
+        for roi, out in zip(rois, outs):
+            want = chain(gw3.store.get(rgb_key, roi), device=dev)
+            if out.dtype != want.dtype or not np.array_equal(out, want):
+                fail(f"coalesced compute of {roi} differs from the local chain")
+        pipe_stats = {k: sum(p.stats[k] for p in pipelines) for k in ("uploaded", "computed",
+                                                                        "downloaded")}
+        batch = dict(
+            near_data="coalesced", chain=name, rois=len(rois), roi_shape=[3, side, side],
+            stride=stride, clients=NEAR_DATA_CLIENTS, window_fetches=windows,
+            coalesced=after["compute_coalesced"] - before["compute_coalesced"],
+            wall_ms=batch_s * 1e3, launches=batch_counts, device_pipelines=len(pipelines),
+            device_pipeline_stats=pipe_stats,
+            raw_fetch_bytes=after["raw_fetch_bytes"] - before["raw_fetch_bytes"],
+        )
+        del outs
+
+        # -- every chain again: a derived-cache hit that launches nothing ---------
+        for row, (name, params) in zip(rows, requests):
+            chain = resolve_chain(name, params)
+            gw, key, roi = sources[source_of(chain)]
+            hits0 = gw.stats.compute_cache_hits
+            reset_counts()
+            t0 = time.perf_counter()
+            out = gw.compute(key, roi, name, params)
+            row["warm_ms"] = (time.perf_counter() - t0) * 1e3
+            if any(counts().values()):
+                fail(f"the cached {chain.name} launched {counts()}")
+            if gw.stats.compute_cache_hits != hits0 + 1:
+                fail(f"the repeated {chain.name} was no derived-cache hit")
+            if not np.array_equal(out, cold_out[(name, chain.digest())]):
+                fail(f"the cached {chain.name} differs from its cold result")
+
+        stats = {n: g.storage_stats() for n, g in (("DMS3", gw3), ("DMS2", gw2))}
+        for n, st in stats.items():
+            if st["gateway"]["compute_failed"]:
+                fail(f"{n}'s gateway counted {st['gateway']['compute_failed']} failed computes")
+        for row in rows:
+            print(json.dumps({"near_data": "chain", **row}))
+        print(json.dumps(batch))
+        transports = {n: {d: e.get("transport") for d, e in st.get("dms", {}).items()}
+                      for n, st in stats.items()}
+        print(json.dumps({
+            "near_data": "stores", "tiers": {n: st.get("tiers") for n, st in stats.items()},
+            "transports": transports,
+            "gateway": {n: {k: st["gateway"][k] for k in (
+                "compute_requests", "compute_served", "compute_failed", "compute_cache_hits",
+                "compute_windows", "compute_coalesced", "raw_fetch_bytes",
+                "derived_reply_bytes")} for n, st in stats.items()},
+            "derived_cache": {n: st["gateway"]["compute"]["cache"] for n, st in stats.items()},
+        }, default=str), flush=True)
+    finally:
+        compute_mod.DevicePipeline = pipeline_class
+        if reg is not None:
+            for n in ("DMS3", "DMS2"):
+                reg.get(n).close()
+            group = getattr(reg, "server_group", None)
+            if group is not None:
+                group.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    if dev.type != "cuda":
+        return hema_np
+    # -- the cost of pinning a reply afresh, against PyTorch's pinned cache -----
+    nbytes = h * w * 4  # one 4096^2 int32 label array
+    held = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    t0 = time.perf_counter()
+    fresh = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)  # the cache has none free
+    fresh_ms = (time.perf_counter() - t0) * 1e3
+    del fresh
+    t0 = time.perf_counter()
+    cached = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    del cached, held
+    print(json.dumps({"near_data": "pinned_reply", "bytes": nbytes, "pin_fresh_ms": fresh_ms,
+                      "pin_from_cache_ms": cached_ms}), flush=True)
+    return hema_np
+
+
+def glcm_b1_records(torch, dev, time_ms, bound, hema_np: np.ndarray) -> list[dict]:
+    """GLCM at B = 1, the chains' one window (4096^2 of the hematoxylin
+    plane), at 32 and 256 bins: the kernel's call and device times against
+    its bound, the plain version (band by band) and ``bincount``; at 32 bins
+    also the device time of one block for the whole window."""
+    from repro_torch.kernels import glcm as glcm_mod
+    from repro_torch.kernels import ops, ref
+
+    h, w = hema_np.shape
+
+    def plain_glcm(bins, nb):
+        g, hh = ref.glcm_bands_ref(bins, nb, NEAR_DATA_PLAIN_BAND_ROWS)
+        return g.sum(dim=-3), hh.sum(dim=-2)
+
+    hema = torch.as_tensor(hema_np, device=dev)
+    glcm_b1 = []
+    for nb in GLCM_B1_BINS:
+        bins = ref.quantize_ref(hema, nb)[None].contiguous()
+        shared = (nb * nb + nb) * 4 <= glcm_mod.MAX_SHARED_BYTES
+        idx = (bins[:, :, :-1].long() * nb + bins[:, :, 1:].long()).reshape(-1)
+        rec = dict(
+            kernel=f"glcm:b1:nb{nb}", shape=list(bins.shape), max_abs_err=0.0,
+            rows=glcm_mod.band_rows(1, h, w, glcm_mod._num_sms(dev)) if shared else None,
+            kernel_ms=time_ms(lambda: ops.glcm_histogram(bins, nb, impl="cuda"), 20),
+            device_ms=device_ms(torch, lambda ev: glcm_mod.glcm_cuda(bins, nb, events=ev),
+                                (), 20)["device"],
+            plain_ms=time_ms(lambda: plain_glcm(bins, nb), 1, warmup=0),
+            library_ms=time_ms(lambda: torch.bincount(idx, minlength=nb * nb), 10),
+            bound_ms=bound(bins.numel() * 4 + (nb * nb + nb) * 4, 3 * bins.numel())[0],
+        )
+        if shared:  # the parent's launch: one block counts the whole window
+            rec["one_block_device_ms"] = device_ms(
+                torch, lambda ev: glcm_mod.glcm_cuda(bins, nb, rows=h, events=ev), (), 5)["device"]
+        glcm_b1.append(rec)
+        del bins, idx
+    return glcm_b1
+
 
 def serpentine(h: int, w: int) -> np.ndarray:
     """A 1-pixel corridor along every even row, turning at alternate ends."""

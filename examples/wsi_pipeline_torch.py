@@ -3,7 +3,7 @@ the hierarchical dataflow with PATS + DL + prefetch, masks persisted to
 the DISK store (I/O groups) for downstream analysis, and a fault injected
 mid-run to show checkpoint-free recovery via stage re-execution.
 
-  PYTHONPATH=src python examples/wsi_pipeline_torch.py [dms|tiered] [inproc|socket] \
+  PYTHONPATH=src python examples/wsi_pipeline_torch.py [dms|tiered] [inproc|socket|shm] \
       [--device cpu]
 
 The PyTorch/CUDA port's form of ``examples/wsi_pipeline.py``: the stages
@@ -11,8 +11,9 @@ run on the CUDA card (the hand-written kernels) unless ``--device cpu``
 asks for the plain versions on the CPU.  Passing ``tiered`` swaps the
 flat DMS backends for TieredStore stacks (bounded RAM -> DISK -> DMS)
 under the same names — the stage wiring below does not change at all.
-The socket transport is not ported yet: ``socket`` raises
-``NotImplementedError``.
+Passing ``socket`` additionally puts the DMS servers in real subprocesses
+behind the TCP transport, and ``shm`` adds the shared-memory data plane
+(co-located fetches by arena reference) — again with zero wiring changes.
 """
 import argparse
 import shutil
@@ -32,7 +33,8 @@ from repro_torch.storage import DiskStorage
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", nargs="?", default="dms", choices=("dms", "tiered"))
-    ap.add_argument("transport", nargs="?", default="inproc")
+    ap.add_argument("transport", nargs="?", default="inproc",
+                    choices=("inproc", "socket", "shm"))
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
     mode, transport = args.mode, args.transport
@@ -46,6 +48,9 @@ def main(argv=None) -> None:
 
     registry = make_wsi_storage(h, w, mode=mode, transport=transport,
                                 tile=tile, root=tiers_root)
+    if transport != "inproc":
+        print(f"DMS servers: {len(registry.server_group.procs)} processes, "
+              f"endpoints {registry.server_group.endpoints}")
     dom3 = BoundingBox((0, 0, 0), (3, h, w))
     dom2 = BoundingBox((0, 0), (h, w))
     dms3 = registry.get("DMS3")
@@ -119,6 +124,12 @@ def main(argv=None) -> None:
             print(f"[{name}] MEM hit_rate={mem.hit_rate:.2f} "
                   f"promotions={mem.promotions} demotions={mem.demotions}")
             store.close()
+    elif transport != "inproc":
+        for name in ("DMS3", "DMS2"):
+            registry.get(name).close()
+    group = getattr(registry, "server_group", None)
+    if group is not None:
+        group.close()
     shutil.rmtree(tmp, ignore_errors=True)
     shutil.rmtree(tiers_root, ignore_errors=True)
 

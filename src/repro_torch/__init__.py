@@ -4,8 +4,14 @@ The JAX package ``repro`` is the reference; this package imports nothing of
 it and nothing of JAX. So far it holds two paths over six hand-written CUDA
 kernels for Hopper (``kernels``):
 
-* the WSI main path in plain-function form (``pipeline.analyze_tile``) on
-  color deconvolution, reconstruction, connected components and GLCM;
+* the WSI main path on color deconvolution, reconstruction, connected
+  components and GLCM, in its three forms: plain functions
+  (``pipeline.analyze_tile``), region-template stages under the runtime
+  (``pipeline.SegmentationStage``/``FeatureStage`` over ``storage`` and
+  ``runtime``), and near-data kernel chains (``kernels.chains``) that the
+  serving gateway (``serve.RegionGateway.compute``) runs next to the data,
+  with its DMS on socket or shared-memory server processes
+  (``storage.spawn_servers``);
 * LM serving for the hybrid family (``hymba-1.5b``: ``models``,
   ``serve.generate``, ``launch.serve``), whose prefill runs on flash
   attention and the Mamba2 SSD scan.

@@ -38,7 +38,7 @@ SIGNATURES = {
     "rt_morph_recon_rounds": [P, P, P, P, I, I, I, I, P],
     "rt_ccl": [P, P, P, I, I, P, P],
     "rt_ccl_scratch_ints": [I, I],
-    "rt_glcm": [P, P, P, I, I, I, I, P],
+    "rt_glcm": [P, P, P, I, I, I, I, I, P],
     "rt_glcm_global": [P, P, P, I, I, I, I, P],
     "rt_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
     "rt_flash_attention_tc": [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P],

@@ -27,11 +27,20 @@
 //          warp still collide on a popular bin, warps never do. Above NB = 84
 //          the block keeps one copy.
 //
+// Row bands: a batch of fewer tiles than the card has room for (the kernel
+// chains send one whole window, B = 1, up to 4096^2) would leave all but B of
+// the 132 SMs idle. Pairs are horizontal, so rows are independent: the grid's
+// second axis then cuts each tile into bands of whole rows, each block counts
+// its band in shared memory as above, and adds its non-zero counters into the
+// outputs (zeroed first) with float32 atomics. Every partial sum is an integer
+// no larger than its final count, at most H*W <= 2^24 (the wrapper bands only
+// then), so every float32 sum is exact.
+//
 // Above NB = 240 the (NB*NB + NB) counters no longer fit one block's 227 KB
 // of shared memory. rt_glcm_global then zeroes the outputs and counts
 // straight into them with float32 atomics in device memory: an integer-valued
-// float32 sum is exact while it stays below 2^24, which a tile of fewer than
-// 2^24 pixels guarantees (the wrapper checks). Several blocks share a tile, so
+// float32 sum is exact while it stays at or below 2^24, which a tile of at
+// most 2^24 pixels guarantees (the wrapper checks). Several blocks share a tile, so
 // a tile's pixels spread over the SMs; the counts scatter over NB^2 addresses
 // and rarely collide.
 #include <cuda_runtime.h>
@@ -55,14 +64,16 @@ __device__ __forceinline__ int pair_key(int a, int b, bool has_right, int nb) {
 
 __device__ __forceinline__ int hist_key(int a, int nb) { return (a >= 0 && a < nb) ? a : -1; }
 
-// grid: one block per tile; copies: 1 or kWarps copies of the counters.
+// grid (b, bands): blockIdx.x is the tile, blockIdx.y its band of `rows` rows
+// (one band, rows = h, writes the counts; several add them into zeroed
+// outputs); copies: 1 or kWarps copies of the counters.
 // Every lane of a warp runs the same number of loop trips (the loops step by
 // whole warps), as __shfl_down_sync needs.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads) glcm_kernel(const int* __restrict__ bins,
                                                         float* __restrict__ glcm,
                                                         float* __restrict__ hist, int h, int w,
-                                                        int nb, int copies) {
+                                                        int nb, int copies, int rows) {
   extern __shared__ int counts[];
   const int ncounts = nb * nb + nb;
   for (int k = threadIdx.x; k < ncounts * copies; k += blockDim.x) counts[k] = 0;
@@ -73,12 +84,14 @@ __global__ void __launch_bounds__(kThreads) glcm_kernel(const int* __restrict__ 
   const int hw = h * w;
   const int* tile = bins + (size_t)blockIdx.x * hw;
   const int lane = threadIdx.x & 31;
+  const int y0 = (int)blockIdx.y * rows;  // the band's first row
+  const int p0 = y0 * w, p1 = min(y0 + rows, h) * w;  // its pixels [p0, p1)
   if (kVec) {
-    // hw % 4 == 0; a group of 4 bins never crosses a row end
-    const int ngroups = hw / 4;
-    const int trips = (ngroups + kThreads - 1) / kThreads;
+    // w % 4 == 0; a group of 4 bins never crosses a row end, nor a band's
+    const int g0 = p0 / 4, ngroups = p1 / 4;
+    const int trips = (ngroups - g0 + kThreads - 1) / kThreads;
     for (int t = 0; t < trips; ++t) {
-      const int q = t * kThreads + threadIdx.x;
+      const int q = g0 + t * kThreads + threadIdx.x;
       const bool live = q < ngroups;
       int4 v = make_int4(-1, -1, -1, -1);
       if (live) v = __ldg(reinterpret_cast<const int4*>(tile) + q);
@@ -96,7 +109,7 @@ __global__ void __launch_bounds__(kThreads) glcm_kernel(const int* __restrict__ 
       count(g, pair_key(v.w, next, has_next, nb));
     }
   } else {
-    for (int p = threadIdx.x; p < hw; p += kThreads) {
+    for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
       const bool has_right = (p % w) != w - 1;
       const int a = __ldg(tile + p);
       const int b = has_right ? __ldg(tile + p + 1) : -1;
@@ -108,19 +121,21 @@ __global__ void __launch_bounds__(kThreads) glcm_kernel(const int* __restrict__ 
 
   float* gout = glcm + (size_t)blockIdx.x * nb * nb;
   float* hout = hist + (size_t)blockIdx.x * nb;
+  const bool banded = gridDim.y > 1;
   for (int k = threadIdx.x; k < ncounts; k += blockDim.x) {
     int c = counts[k];
     for (int r = 1; r < copies; ++r) c += counts[r * ncounts + k];
-    if (k < nb * nb) {
-      gout[k] = (float)c;
-    } else {
-      hout[k - nb * nb] = (float)c;
+    float* out = k < nb * nb ? gout + k : hout + (k - nb * nb);
+    if (!banded) {
+      *out = (float)c;
+    } else if (c != 0) {
+      atomicAdd(out, (float)c);
     }
   }
 }
 
 template <bool kVec>
-int launch_glcm(const int* bins, float* glcm, float* hist, int b, int h, int w, int nb,
+int launch_glcm(const int* bins, float* glcm, float* hist, int b, int h, int w, int nb, int rows,
                 cudaStream_t stream) {
   const size_t one = (size_t)(nb * nb + nb) * sizeof(int);
   const int copies = kWarps * one <= kMaxSharedBytes ? kWarps : 1;
@@ -130,7 +145,14 @@ int launch_glcm(const int* bins, float* glcm, float* hist, int b, int h, int w, 
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  glcm_kernel<kVec><<<b, kThreads, smem, stream>>>(bins, glcm, hist, h, w, nb, copies);
+  const int bands = max(1, (h + rows - 1) / rows);
+  if (bands > 1) {  // the blocks add their bands' counts into zeroed outputs
+    cudaError_t err = cudaMemsetAsync(glcm, 0, (size_t)b * nb * nb * sizeof(float), stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(hist, 0, (size_t)b * nb * sizeof(float), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  glcm_kernel<kVec><<<dim3(b, bands), kThreads, smem, stream>>>(bins, glcm, hist, h, w, nb,
+                                                                copies, rows);
   return (int)cudaGetLastError();
 }
 
@@ -153,19 +175,22 @@ __global__ void glcm_global_kernel(const int* __restrict__ bins, float* __restri
 
 }  // namespace
 
-// (b, h, w) int32 bins -> glcm (b, nb, nb), hist (b, nb) float32. The caller
-// checks that one copy of the counters fits in one block's shared memory:
-// (nb*nb + nb) * 4 bytes.
+// (b, h, w) int32 bins -> glcm (b, nb, nb), hist (b, nb) float32; a block
+// counts `rows` rows of a tile (rows >= h: the whole tile). The caller checks
+// that one copy of the counters fits in one block's shared memory,
+// (nb*nb + nb) * 4 bytes, that ceil(h / rows) fits the grid's y axis, and
+// that h*w <= 2^24 where rows < h.
 extern "C" int rt_glcm(const int* bins, float* glcm, float* hist, int b, int h, int w, int nb,
-                       cudaStream_t stream) {
+                       int rows, cudaStream_t stream) {
   if (b <= 0) return (int)cudaGetLastError();
+  rows = rows < 1 || rows > h ? max(h, 1) : rows;
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(bins) % 16 == 0;
-  return vec ? launch_glcm<true>(bins, glcm, hist, b, h, w, nb, stream)
-             : launch_glcm<false>(bins, glcm, hist, b, h, w, nb, stream);
+  return vec ? launch_glcm<true>(bins, glcm, hist, b, h, w, nb, rows, stream)
+             : launch_glcm<false>(bins, glcm, hist, b, h, w, nb, rows, stream);
 }
 
-// The same counts for any nb, in device memory; the caller checks h*w < 2^24
-// so that every float32 count is exact.
+// The same counts for any nb, in device memory; the caller checks h*w <= 2^24:
+// no count exceeds h*w, and float32 holds every integer up to 2^24 exactly.
 extern "C" int rt_glcm_global(const int* bins, float* glcm, float* hist, int b, int h, int w,
                               int nb, cudaStream_t stream) {
   if (b <= 0) return (int)cudaGetLastError();

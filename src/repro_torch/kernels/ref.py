@@ -388,6 +388,19 @@ def glcm_ref(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
     return torch.einsum("...pa,...pb->...ab", lhot, rhot)
 
 
+def glcm_bands_ref(
+    bins: torch.Tensor, num_bins: int, rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial counts of the GLCM kernel's row bands: the tiles of
+    ``bins`` (..., H, W) cut into bands of ``rows`` rows (the last may be
+    shorter) -> (glcm (..., bands, NB, NB), hist (..., bands, NB)). Pairs are
+    horizontal, so summed over the bands they are ``glcm_ref`` and
+    ``histogram_ref`` of the whole tiles."""
+    parts = [bins[..., y:y + rows, :] for y in range(0, bins.shape[-2], rows)]
+    return (torch.stack([glcm_ref(p, num_bins) for p in parts], dim=-3),
+            torch.stack([histogram_ref(p, num_bins) for p in parts], dim=-2))
+
+
 def glcm_features_ref(glcm: torch.Tensor) -> torch.Tensor:
     """Haralick features from a GLCM: (contrast, energy, homogeneity,
     entropy, correlation) -> (..., 5)."""

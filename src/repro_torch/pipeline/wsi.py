@@ -13,7 +13,9 @@ Both forms run the same steps (``_normalize``, ``_threshold``,
 bit for bit. Every step runs on one device, from deconvolution to features:
 the CUDA card unless the caller passes ``device="cpu"``. ``impl`` is passed
 to ``kernels.ops`` (``"auto"``: the kernels on the card, the plain versions
-on the CPU; ``"torch"``: the plain versions anywhere).
+on the CPU; ``"torch"``: the plain versions anywhere). The third form, the
+near-data kernel chains (``kernels.chains``), runs in the gateways that
+``make_wsi_storage(serve=..., compute=True)`` puts in front of the stores.
 """
 from __future__ import annotations
 
@@ -30,7 +32,13 @@ from repro_torch.core.regions import to_numpy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.runtime.dag import Stage, Task, TaskCost
-from repro_torch.storage import DistributedMemoryStorage, PlacementPolicy, TieredStore
+from repro_torch.storage import (
+    DistributedMemoryStorage,
+    PlacementPolicy,
+    SocketTransport,
+    TieredStore,
+    spawn_servers,
+)
 
 
 def _stain_inverse(minv, device: torch.device) -> torch.Tensor:
@@ -156,10 +164,6 @@ def analyze_tile(
 # ---------------------------------------------------------------------------
 # Storage wiring: flat DMS baseline vs. opt-in tiered hierarchy
 # ---------------------------------------------------------------------------
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported (ROADMAP queue 1, item 4)")
-
-
 def make_wsi_storage(
     h: int,
     w: int,
@@ -182,6 +186,7 @@ def make_wsi_storage(
     promote_after: int = 2,
     serve=False,
     compute=False,
+    device=None,
 ) -> StorageRegistry:
     """Build the storage backing the WSI stages under the canonical names
     ("DMS3" for the (3, H, W) RGB volume, "DMS2" for the 2-D mask/hema
@@ -190,30 +195,66 @@ def make_wsi_storage(
     ``mode="dms"`` is the paper baseline (one DMS per domain);
     ``mode="tiered"`` swaps in :class:`TieredStore` stacks (bounded RAM
     -> DISK -> DMS) behind the same names — the opt-in hierarchy with
-    zero call-site changes.  In tiered mode the DISK tiers live under
-    ``root`` (subdirs per store); the default is a fresh
-    ``tempfile.mkdtemp`` the caller owns.
+    zero call-site changes.
 
-    The signature is ``repro.pipeline.make_wsi_storage``'s.  The DMS
-    servers are in-process shards (``transport="inproc"``);
-    ``replication=R`` places each block on R of them, ``repair=`` starts
-    the stores' anti-entropy sweep (``True`` for 30 s, or an interval in
-    seconds) and ``membership`` seeds their elastic ring.  The socket and
-    shared-memory transports (``transport="socket"``/``"shm"``,
-    ``endpoints=``, ``wire_codec=``, ``server_processes``) and the serving
-    gateway and near-data compute (``serve=``, ``compute=``) are not
-    ported yet: asking for them raises ``NotImplementedError``.
+    ``transport`` picks the DMS server link: ``"inproc"`` keeps the
+    in-process shards, ``"socket"`` puts the DMS tier on real TCP
+    servers, and ``"shm"`` is ``"socket"`` plus the negotiated
+    shared-memory data plane — co-located fetches arrive by arena
+    reference instead of a TCP stream copy, degrading automatically to
+    socket payloads for remote or pre-arena servers.  ``wire_codec``
+    (one of ``repro_torch.storage.codec.WIRE_CODECS``, e.g. ``"zlib"``, or a
+    per-key glob mapping like ``{"labels/*": "zlib", "feat/*": "bf16"}``)
+    compresses socket payloads per connection; raw-vs-wire savings show
+    up in ``storage_stats()``.  ``membership`` seeds the stores' elastic
+    fleet view (:class:`~repro_torch.storage.membership.RingView`); ``None``
+    means the genesis ring, and each store's ``add_server`` /
+    ``remove_server`` / ``rebalance`` then resize the fleet live.
+    With ``endpoints`` (a list of
+    ``(host, port)`` / "host:port"
+    addresses, one per server id) the stores attach to an already-running
+    fleet; otherwise ``num_servers`` shards are spawned locally across
+    ``server_processes`` processes and the started
+    :class:`~repro_torch.storage.net.ServerGroup` is attached to the returned
+    registry as ``registry.server_group`` — the caller owns it (close it
+    after closing the stores).  ``replication=R`` turns on the DMS
+    stores' R-way block replication (home + next R-1 servers along the
+    SFC ring): reads fail over between replicas and puts re-home blocks
+    past dead replicas, so any R-1 dead servers cause zero failed reads
+    AND zero failed puts.  ``repair=`` opts into the DMS stores'
+    background anti-entropy sweep (``True`` for the 30 s default or a
+    float interval in seconds): a crashed server that rejoins empty is
+    re-filled until every block has R live copies again; closing the
+    stores stops the sweeps.
+
+    In tiered mode the DISK tiers live under ``root`` (subdirs per
+    store).  Pass your own ``root`` if you want to clean it up; the
+    default is a fresh ``tempfile.mkdtemp`` the caller owns (reachable
+    via each store's DISK backend: ``store.tiers[1].backend.root``).
+
+    ``serve`` fronts every store with a
+    :class:`~repro_torch.serve.gateway.RegionGateway` (pass ``True`` for the
+    defaults or a :class:`~repro_torch.serve.gateway.GatewayConfig`): many
+    concurrent clients then share one hierarchy through a bounded,
+    request-coalescing worker pool with ``TierStats``-driven admission
+    control.  The gateways register under the same names ("DMS3"/
+    "DMS2"), so stage bindings never change; closing a gateway closes
+    its store.
+
+    ``compute=True`` turns the gateways into the paper's near-data
+    analysis service: clients call ``registry.get("DMS3").compute(key,
+    roi, "deconv|threshold|ccl")`` and the kernel chain runs server-side
+    (the CUDA kernels on the card, the plain versions on the CPU), returning only the
+    derived mask/labels/features — an order-of-magnitude egress cut for
+    derived-product queries, with a put-generation-invalidated derived
+    cache for repeated hot analyses.  ``compute=True`` implies
+    ``serve=True``; pass a :class:`~repro_torch.serve.gateway.GatewayConfig`
+    via ``serve=`` to size the derived cache (``compute_cache_bytes``)
+    or pin the kernel impl (``compute_impl``).  The gateways run their
+    chains on ``device``: ``None`` means the CUDA card (raises without
+    one), ``"cpu"`` the plain versions on the CPU.
     """
-    if transport not in ("inproc", "socket", "shm"):
-        raise ValueError(
-            f"unknown transport {transport!r} (want 'inproc' | 'socket' | 'shm')"
-        )
-    if transport != "inproc":
-        raise _not_ported(f"transport={transport!r}")
-    for name, value in (("endpoints=", endpoints), ("wire_codec=", wire_codec),
-                        ("serve=", serve), ("compute=", compute)):
-        if value is not None and value is not False:
-            raise _not_ported(name)
+
     registry = registry or StorageRegistry()
     dom3 = BoundingBox((0, 0, 0), (3, h, w))
     dom2 = BoundingBox((0, 0), (h, w))
@@ -221,6 +262,38 @@ def make_wsi_storage(
     if repair is True:
         repair = 30.0
     repair_interval = None if not repair else float(repair)
+    if transport not in ("inproc", "socket", "shm"):
+        raise ValueError(
+            f"unknown transport {transport!r} (want 'inproc' | 'socket' | 'shm')"
+        )
+    if transport == "inproc" and wire_codec is not None:
+        raise ValueError(
+            "wire_codec= needs transport='socket' or 'shm' (in-process shards "
+            "move no wire bytes); refusing to silently ignore it"
+        )
+    if endpoints is not None:
+        if transport == "inproc":
+            raise ValueError(
+                f"endpoints= only makes sense with transport='socket'/'shm' "
+                f"(got transport={transport!r}); refusing to silently build "
+                f"in-process shards"
+            )
+        num_servers = len(endpoints)  # one server id per endpoint entry
+    shm_mode = "auto" if transport == "shm" else "off"
+
+    def _transport(scope: str):
+        """One transport per store: shards are shared across stores, so
+        each store scopes its keyspace (and owns its connections)."""
+        if transport == "inproc":
+            return None
+        kw = dict(scope=scope, wire_codec=wire_codec, shm=shm_mode)
+        if endpoints is not None:
+            return SocketTransport(endpoints, **kw)
+        group = getattr(registry, "server_group", None)
+        if group is None:
+            group = spawn_servers(num_servers, processes=server_processes)
+            registry.server_group = group
+        return group.transport(**kw)
 
     if mode == "dms":
         for sname, dom, bshape in (
@@ -229,7 +302,8 @@ def make_wsi_storage(
         ):
             dms = DistributedMemoryStorage(
                 dom, bshape, num_servers, name=sname,
-                replication=replication, membership=membership,
+                transport=_transport(sname), replication=replication,
+                membership=membership,
             )
             if repair_interval is not None:
                 dms.start_auto_repair(repair_interval)
@@ -251,6 +325,7 @@ def make_wsi_storage(
                     write_policy=write_policy,
                     policy=policy,
                     promote_after=promote_after,
+                    dms_transport=_transport(name),
                     replication=replication,
                     repair_interval=repair_interval,
                     membership=membership,
@@ -258,6 +333,24 @@ def make_wsi_storage(
             )
     else:
         raise ValueError(f"unknown storage mode {mode!r} (want 'dms' | 'tiered')")
+    if compute and not serve:
+        serve = True  # near-data compute runs inside the serving gateway
+    if serve:
+        from repro_torch.serve.gateway import GatewayConfig, RegionGateway
+
+        if isinstance(serve, GatewayConfig):
+            gw_config = serve
+        elif serve is True:
+            gw_config = None  # gateway defaults
+        else:
+            raise TypeError(
+                f"serve= wants True or a GatewayConfig, got {serve!r}; "
+                f"refusing to silently ignore gateway settings"
+            )
+        for name in ("DMS3", "DMS2"):
+            registry.register(
+                RegionGateway(registry.get(name), config=gw_config, device=device)
+            )
     return registry
 
 

@@ -9,14 +9,18 @@ live.  Picking one:
 * ``DistributedMemoryStorage`` (DMS) — in-memory, SFC-partitioned across
   servers; the fastest *shared* layer.  Use for hot inter-stage exchange
   when everything fits in aggregate RAM.  Its servers sit behind the
-  ``Transport`` message protocol; this package has the in-process one,
-  ``InProcTransport`` (in-process shards + virtual-time link model).
+  ``Transport`` message protocol: ``InProcTransport`` (in-process shards
+  + virtual-time link model) or ``SocketTransport`` (framed TCP to
+  ``ServerProcess`` hosts — the multi-host deployment).
   ``replication=R`` places every block on R servers along the SFC ring
   and fails reads over between replicas, so R-1 dead servers cause zero
   failed reads (directories are replicated everywhere already).
 * ``DiskStorage`` (DISK) — ADIOS-style chunked staging with I/O groups
-  and a crash-tolerant manifest.  Use for durable staging and payloads
-  too large for memory.
+  and a crash-tolerant manifest.  Use for durable staging, checkpoints,
+  and payloads too large for memory.
+* ``SpatioTemporalCache`` — an LRU + motion-predictive prefetch *front*
+  for any single backend.  Use when one client re-reads a drifting ROI
+  stream (tracking workloads).
 * ``TieredStore`` — the automatic hierarchy (bounded RAM tier -> DISK ->
   DMS) behind one name: read-through promotion, capacity-triggered
   spill-down, write-through/write-back with ``flush()``/``drain()``, and
@@ -27,10 +31,10 @@ live.  Picking one:
   transfers per tier.
 
 The modules are copies of ``repro.storage``'s, which hold no JAX. The
-socket and shared-memory transports, the spatio-temporal cache front, the
-I/O autotuner and the checkpoint manager are not ported yet: asking this
-package for one of their names raises ``AttributeError``.
+checkpoint manager is not ported yet: asking this package for it raises
+``AttributeError``.
 """
+from repro_torch.storage.autotune import IOConfig, TuneResult, autotune_io
 from repro_torch.storage.codec import (
     WIRE_CODECS,
     Encoded,
@@ -48,7 +52,15 @@ from repro_torch.storage.dms import (
     decode_homes,
     encode_homes,
 )
+from repro_torch.storage.net import (
+    ServerGroup,
+    ServerProcess,
+    ShmTransport,
+    SocketTransport,
+    spawn_servers,
+)
 from repro_torch.storage.membership import RingView, TokenBucket, adopt_newer
+from repro_torch.storage.shm import ShmArena, ShmWindow
 from repro_torch.storage.placement import (
     Placement,
     PlacementPolicy,
@@ -58,6 +70,7 @@ from repro_torch.storage.placement import (
     size_threshold,
     when,
 )
+from repro_torch.storage.stcache import SpatioTemporalCache, STCacheStats
 from repro_torch.storage.tiers import (
     TIER_BANDWIDTH,
     MemoryTier,
@@ -77,11 +90,23 @@ __all__ = [
     "TransportStats",
     "decode_homes",
     "encode_homes",
+    "ServerGroup",
+    "ServerProcess",
+    "ShmArena",
+    "ShmTransport",
+    "ShmWindow",
+    "SocketTransport",
     "TransportError",
+    "spawn_servers",
     "WIRE_CODECS",
     "Encoded",
     "decode_block",
     "encode_block",
+    "IOConfig",
+    "TuneResult",
+    "autotune_io",
+    "SpatioTemporalCache",
+    "STCacheStats",
     "RingView",
     "TokenBucket",
     "adopt_newer",
@@ -99,23 +124,10 @@ __all__ = [
     "TierStats",
 ]
 
+
 # names of repro.storage that this package does not have yet, by the module
 # of repro.storage that holds them
-NOT_PORTED = {
-    "CheckpointManager": "checkpoint",
-    "SocketTransport": "net",
-    "ServerGroup": "net",
-    "ServerProcess": "net",
-    "ShmTransport": "net",
-    "spawn_servers": "net",
-    "ShmArena": "shm",
-    "ShmWindow": "shm",
-    "SpatioTemporalCache": "stcache",
-    "STCacheStats": "stcache",
-    "IOConfig": "autotune",
-    "TuneResult": "autotune",
-    "autotune_io": "autotune",
-}
+NOT_PORTED = {"CheckpointManager": "checkpoint"}
 
 
 def __getattr__(name: str):

@@ -317,13 +317,56 @@ def test_glcm_cuda_exact(dev, b, h, w, nb):
 
 def test_glcm_cuda_refuses_oversized_bins(dev):
     """Above 240 bins the counts are float32 atomics in device memory, exact
-    only below 2^24 a count: a 4096^2 tile is refused there, not below."""
+    up to 2^24 a count: a tile of more than 2^24 pixels is refused there; a
+    4096^2 tile, exactly 2^24, is counted, at 241 bins as at 240."""
     with pytest.raises(ValueError, match="too large"):
-        glcm_cuda(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), 241)
+        glcm_cuda(torch.zeros((1, 4097, 4096), dtype=torch.int32, device=dev), 241)
     with pytest.raises(ValueError, match="at least 1"):
         glcm_cuda(torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), 0)
-    g, h = glcm_cuda(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), 240)
-    assert float(h[0, 0]) == 4096 * 4096 and float(g[0, 0, 0]) == 4096 * 4095
+    with pytest.raises(ValueError, match="bands"):
+        glcm_cuda(torch.zeros((1, 4097, 4096), dtype=torch.int32, device=dev), 32, rows=8)
+    for nb in (240, 241):
+        g, h = glcm_cuda(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), nb)
+        assert float(h[0, 0]) == 4096 * 4096 and float(g[0, 0, 0]) == 4096 * 4095
+
+
+def _plain_glcm_by_bands(bins, nb, rows=64):
+    """The plain counts of large tiles, band by band and summed (the whole
+    tile's one-hot matrices would not fit the card at 256 bins); the CPU
+    tests show that the band sums equal the whole."""
+    g, h = ref.glcm_bands_ref(bins, nb, rows)
+    return g.sum(dim=-3), h.sum(dim=-2)
+
+
+# B = 1, the kernel chains' one window: row bands spread it over the card
+@pytest.mark.parametrize("h,w,nb", [(4096, 4096, 32), (4096, 4096, 240), (4096, 4096, 241),
+                                    (4096, 4096, 256), (4096, 4095, 256), (4095, 4096, 32),
+                                    (1000, 37, 32)])
+def test_glcm_cuda_one_window(dev, h, w, nb):
+    gen = torch.Generator(device=dev).manual_seed(h + w + nb)
+    bins = torch.randint(-1, nb + 1, (1, h, w), generator=gen, dtype=torch.int32, device=dev)
+    bins[0, : h // 2, : w // 2] = nb // 3  # a popular bin: many blocks add into one counter
+    g, hist = glcm_cuda(bins, nb)
+    g_ref, h_ref = _plain_glcm_by_bands(bins, nb)
+    assert torch.equal(g, g_ref)
+    assert torch.equal(hist, h_ref)
+    assert float(hist.sum()) == float(((bins >= 0) & (bins < nb)).sum())
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 64])
+@pytest.mark.parametrize("nb", [32, 85])
+def test_glcm_cuda_bands_equal_one_block_a_tile(dev, rows, nb):
+    """The band split against the one-block-a-tile launch (the WSI path's,
+    on its 512 x 64^2 batch), on the 16-byte path and the scalar one."""
+    gen = torch.Generator(device=dev).manual_seed(rows * nb)
+    for w in (64, 63):
+        bins = torch.randint(-1, nb + 1, (512, 64, w), generator=gen, dtype=torch.int32,
+                             device=dev)
+        g1, h1 = glcm_cuda(bins, nb, rows=64)
+        gb, hb = glcm_cuda(bins, nb, rows=rows)
+        assert torch.equal(g1, gb) and torch.equal(h1, hb)
+        g_ref, h_ref = ops.glcm_histogram(bins, nb, impl="torch")
+        assert torch.equal(g1, g_ref) and torch.equal(h1, h_ref)
 
 
 def test_analyze_tile_cuda_matches_plain(dev):
@@ -607,3 +650,41 @@ def test_device_pipeline_cuda_matches_direct_calls(dev):
     for t, got in zip(tiles, outs):
         assert isinstance(got, np.ndarray)
         np.testing.assert_array_equal(got, ops.color_deconv(_t(t, dev), minv).cpu().numpy())
+
+
+@pytest.mark.parametrize("chain_name", ["deconv|threshold|fill", "deconv|threshold|ccl|count",
+                                        "glcm"])
+def test_gateway_compute_on_the_card_equals_a_local_chain(dev, chain_name):
+    """A gateway's near-data chain runs on the card (the kernels launch) and
+    equals the same chain run locally on the same ROI, bit for bit; its
+    repeat is a derived-cache hit that launches nothing."""
+    from repro_torch.core import BoundingBox, ElementType, RegionKey
+    from repro_torch.kernels import color_deconv, glcm
+    from repro_torch.kernels.chains import resolve_chain
+    from repro_torch.serve import RegionGateway
+    from repro_torch.storage import DistributedMemoryStorage, Tier, TieredStore
+
+    rgb, _ = make_tile(256, num_nuclei=20, seed=7)
+    chain = resolve_chain(chain_name)
+    data = rgb if 3 in chain.in_ranks else resolve_chain("deconv")(rgb, device=dev)
+    dom = BoundingBox((0,) * data.ndim, data.shape)
+    store = TieredStore([Tier("DMS", DistributedMemoryStorage(dom, data.shape, 2))], name="ND")
+    key = RegionKey("nd", "X", ElementType.FLOAT32)
+    store.put(key, dom, data)
+    gw = RegionGateway(store)
+    assert gw.device.type == "cuda"
+    roi = BoundingBox((0,) * (data.ndim - 2) + (16, 40), data.shape[:-2] + (240, 256))
+    try:
+        before = (color_deconv.launches, glcm.launches)
+        got = gw.compute(key, roi, chain_name)
+        moved = (color_deconv.launches - before[0], glcm.launches - before[1])
+        assert moved == (int(chain_name.startswith("deconv")), int(chain_name == "glcm"))
+        want = chain(store.get(key, roi), device=dev)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        before = (color_deconv.launches, glcm.launches)
+        np.testing.assert_array_equal(gw.compute(key, roi, chain_name), want)
+        assert (color_deconv.launches, glcm.launches) == before
+        assert gw.stats.compute_cache_hits == 1 and gw.stats.compute_failed == 0
+    finally:
+        gw.close()

@@ -24,6 +24,12 @@ RUNTIME_SLICE = (
     "repro_torch.runtime.scheduler", "repro_torch.runtime.manager",
     "repro_torch.runtime.prefetch", "repro_torch.pipeline.wsi",
 )
+# the near-data chains and the serving tier, with the storage modules it needs
+SERVING_SLICE = (
+    "repro_torch.kernels.chains", "repro_torch.serve.fair", "repro_torch.serve.rcache",
+    "repro_torch.serve.gateway", "repro_torch.serve.compute", "repro_torch.storage.shm",
+    "repro_torch.storage.net", "repro_torch.storage.stcache", "repro_torch.storage.autotune",
+)
 
 
 def _port_modules():
@@ -45,7 +51,8 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                 "repro_torch.models.layers", "repro_torch.models.transformer",
                 "repro_torch.models.registry", "repro_torch.configs.registry",
                 "repro_torch.configs.hymba_1_5b", "repro_torch.serve.step",
-                "repro_torch.launch.serve", "repro_torch.convert", *RUNTIME_SLICE):
+                "repro_torch.launch.serve", "repro_torch.convert", *RUNTIME_SLICE,
+                *SERVING_SLICE):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
@@ -77,7 +84,7 @@ def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_lm_torch.py",
         ROOT / "examples" / "serve_lm_torch.py", ROOT / "examples" / "wsi_pipeline_torch.py",
-        ROOT / "examples" / "quickstart_torch.py",
+        ROOT / "examples" / "quickstart_torch.py", ROOT / "examples" / "serve_regions_torch.py",
     ]
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & {"jax", "jaxlib", "repro"})
@@ -154,3 +161,57 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_the_storage_server_imports_neither_jax_nor_repro():
+    """``python -m repro_torch.storage.net`` is what ``ServerProcess``
+    spawns: its imports, in a fresh interpreter, hold no JAX, no module of
+    the JAX package and no ``ml_dtypes``."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['net', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.storage.net', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "repro_torch.storage.net" in proc.stdout  # the server's own usage line
+
+
+def test_serving_tier_raises_without_cuda():
+    """The gateway, its compute engine and its prefetcher run on the card
+    unless given ``device="cpu"``; none of them falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core import BoundingBox
+    from repro_torch.kernels.chains import resolve_chain
+    from repro_torch.pipeline import make_wsi_storage
+    from repro_torch.serve import ComputeEngine, GatewayConfig, RegionGateway, WindowPrefetcher
+    from repro_torch.serve.gateway import GatewayStats
+    from repro_torch.serve.rcache import GenerationTracker, ResponseCache
+    from repro_torch.storage import DistributedMemoryStorage
+
+    store = DistributedMemoryStorage(BoundingBox((0, 0), (8, 8)), (8, 8), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RegionGateway(store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ComputeEngine(store, GatewayConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WindowPrefetcher(store, ResponseCache(1 << 20), GenerationTracker(store),
+                         GatewayStats())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_wsi_storage(8, 8, serve=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_chain("deconv")(np.ones((3, 8, 8), np.float32))
+    with pytest.raises(ValueError, match="compute_impl"):
+        GatewayConfig(compute_impl="xla")
+    gw = RegionGateway(store, device="cpu", config=GatewayConfig(prefetch=True))
+    assert gw.device.type == "cpu" and gw.engine.device.type == "cpu"
+    gw.close()

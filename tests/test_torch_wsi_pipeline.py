@@ -199,10 +199,16 @@ def test_rt_stages_and_storage_refuse_what_is_missing():
         with pytest.raises(RuntimeError, match="CUDA"):
             stage(CFG, device="cuda")
         assert stage(CFG, device="cpu").device.type == "cpu"
-    for kw in ({"transport": "socket"}, {"transport": "shm"}, {"endpoints": ["h:1"]},
-               {"wire_codec": "zlib"}, {"serve": True}, {"compute": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the gateways run their chains on the card unless given the CPU
+    for kw in ({"serve": True}, {"compute": True}):
+        with pytest.raises(RuntimeError, match="CUDA"):
             tpipe.make_wsi_storage(8, 8, **kw)
+    # the reference's refusals: settings that in-process shards would ignore
+    for kw in ({"endpoints": ["h:1"]}, {"wire_codec": "zlib"}):
+        with pytest.raises(ValueError, match="transport='socket'"):
+            tpipe.make_wsi_storage(8, 8, **kw)
+    with pytest.raises(TypeError, match="serve="):
+        tpipe.make_wsi_storage(8, 8, serve="yes", device="cpu")
     with pytest.raises(ValueError):
         tpipe.make_wsi_storage(8, 8, transport="carrier-pigeon")
     with pytest.raises(ValueError):
