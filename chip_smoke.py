@@ -46,6 +46,17 @@ Phases, each fatal on failure:
      attention and SSD call took its tensor-core instance;
   7. check the LM path end to end in float32: prefill logits on the kernels
      against the plain versions, and greedy tokens over 8 decode steps;
+  7b. the other LM families: hold the two LM kernels against their plain
+     versions at the new shapes (attention at D = 128, 256 and 192, the SSD
+     scan at N = 128), then serve qwen3-0.6b, gemma-2b, mamba2-2.7b and
+     deepseek-v2-lite-16b through ``launch.serve.main`` at full width and
+     depth in bf16 (one batch of 2 prompts of 2048 tokens, 32 new tokens),
+     one model at a time, with the counters set to 0 just before each and
+     read just after, checking each model's kernel launches; score with
+     deepseek-v2-lite-16b's ``forward`` (MLA on the kernel at D = 192); then
+     hold six models end to end in float32 at full width, 2 layers deep,
+     kernels against plain versions; print the meta-device parameter counts
+     of the two models too large for one card;
   8. print the per-kernel JSON lines, the ``kernels`` line and, last, the
      ``{"ok": true, "device": ...}`` line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -66,7 +77,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores, and
 # the dense bf16 tensor-core rate (the least time the card could take for the
-# LM kernels' matrix work, whatever dtype they run in).
+# LM kernels' bf16 matrix work; their float32 work is held to the float32
+# rate, as TF32 would not keep float32's tolerance).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TC_OPS_PER_S = 989e12
@@ -97,6 +109,33 @@ SSD_TOLS = {"bf16": 3e-2, "f32": 3e-4}
 E2E_LOGIT_TOL = 1e-3
 E2E_DECODE_STEPS = 8
 PHASE_SLEEP_CYCLES = 2_000_000  # about 1 ms of device time ahead of a timed call
+# Phase 7b, the other decoder-only families: each served at full width and
+# depth in bf16 through launch.serve.main, one batch of two 2048-token prompts
+# and 32 greedy new tokens; the prefill's expected launches of each kernel
+# (gemma's embedding scale promotes its residual stream to float32, as the
+# reference's does, so its attention runs the CUDA-core instance in float32;
+# the absorbed MLA path of deepseek's prefill and decode calls no kernel)
+FAMILY_ARGV = ["--requests", "2", "--batch", "2", "--prompt-len", "2048", "--max-new", "32"]
+FAMILY_SERVED = {
+    "qwen3-0.6b": {"flash_attention": ("tensor_core", 28), "ssd_scan": ("tensor_core", 0)},
+    "gemma-2b": {"flash_attention": ("cuda_core", 18), "ssd_scan": ("tensor_core", 0)},
+    "mamba2-2.7b": {"flash_attention": ("tensor_core", 0), "ssd_scan": ("tensor_core", 64)},
+    "deepseek-v2-lite-16b": {"flash_attention": ("tensor_core", 0),
+                             "ssd_scan": ("tensor_core", 0)},
+}
+# float32 end to end at full width, cut to 2 layers deep (deepseek: its dense
+# first layer and one MoE layer); what each exercises
+FAMILY_E2E_LAYERS = 2
+FAMILY_E2E = {"qwen3-0.6b": "attention D = 128", "gemma-2b": "attention D = 256",
+              "mamba2-2.7b": "SSD N = 128", "deepseek-v2-lite-16b": "MLA forward, D = 192",
+              "granite-20b": "layer norm, gelu, 48:1 MQA",
+              "internvl2-1b": "the 256-slot patch prefix"}
+FAMILY_META_ONLY = ("nemotron-4-340b", "qwen3-moe-235b-a22b")  # beyond one card's 80 GB
+# the kernels line's family rows: each the measurement in its path's dtype
+FAMILY_ROWS = {"flash_attention:qwen3": "flash_attention:bf16:qwen3",
+               "flash_attention:gemma": "flash_attention:f32:gemma",
+               "flash_attention:mla": "flash_attention:bf16:mla",
+               "ssd_scan:mamba2": "ssd_scan:bf16:mamba2"}
 CCL_WORST = (4095, 4096)  # CCL's worst cases: a serpentine and a full mask through every tile
 # Phase 4c, the near-data chains: the gateways' stores on 4 DMS servers in 2
 # processes behind the shm transport; a derived-cache budget that holds a
@@ -484,6 +523,12 @@ def main() -> None:
                           **{k: v for k, v in r.items() if k != "bound"},
                           "bound_ms": r["bound"][0]}))
 
+    # -- 7b. the other LM families ---------------------------------------------
+    fam_rec, fam_launches = lm_families_phases(torch, dev, time_ms, sync)
+    for name, r in fam_rec.items():
+        print(json.dumps({"kernel": name, **{k: v for k, v in r.items() if k != "bound"},
+                          "bound_ms": r["bound"][0]}))
+
     # -- 8. report ---------------------------------------------------------------
     sources = {
         "color_deconv": ("color_deconv.cu", "src/repro/kernels/color_deconv.py:30"),
@@ -494,6 +539,13 @@ def main() -> None:
         "flash_attention:global": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:104"),
         "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:88"),
+        # the new shapes of the families' paths (phase 7b)
+        "flash_attention:qwen3": ("flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:104"),
+        "flash_attention:gemma": ("flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:104"),
+        "flash_attention:mla": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
+        "ssd_scan:mamba2": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:88"),
     }
     for name, r in [*rec.items(), *((f"morph_recon:{sub}", v) for sub, v in part.items())]:
         line = {"kernel": name, "launches": launches[name.split(":")[0]],
@@ -516,7 +568,10 @@ def main() -> None:
         ("flash_attention:swa", "flash_attention", ":swa"),
         ("flash_attention:global", "flash_attention", ":global"),
         ("ssd_scan", "ssd_scan", ""))})
+    # the families' rows are their paths' dtypes: bf16, gemma's promoted float32
+    rec.update({name: fam_rec[FAMILY_ROWS[name]] for name in FAMILY_ROWS})
     launches.update(lm_launches)
+    launches.update(fam_launches)
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rec[name]
@@ -528,7 +583,10 @@ def main() -> None:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
-        if name.startswith("flash_attention"):
+        if name in FAMILY_ROWS:  # the instance and the path that launched it
+            kernels[-1]["instance"] = r["instance"]
+            kernels[-1]["path"] = fam_launches[f"{name}:path"]
+        elif name.startswith("flash_attention"):
             kernels[-1]["instance_launches"] = launches["flash_attention:instances"][
                 name.split(":")[1]]
         if name == "ssd_scan":
@@ -1152,8 +1210,14 @@ def serpentine(h: int, w: int) -> np.ndarray:
     return m
 
 
-def lm_bound(nbytes: int, nops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / TC_OPS_PER_S
+def lm_bound(nbytes: int, nops: int, dtype) -> tuple[float, str]:
+    """The least time for the work: bytes at the HBM rate against operations
+    at the peak rate of their type (bf16 on the tensor cores; float32 outside
+    them, as TF32 would not hold float32's tolerance)."""
+    import torch
+
+    rate = TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / rate
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1187,8 +1251,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.launch.serve import main as serve_main
-    from repro_torch.models import HybridLM
-    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+    from repro_torch.models import LM
 
     def flag(name: str) -> int:
         return int(LM_ARGV[LM_ARGV.index(name) + 1])
@@ -1233,7 +1296,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
                 plain_ms=time_ms(partial(ops.attention, q, k, v, window=window, impl="torch"), 5),
                 library_ms=time_ms(lib, 10),
                 bound=lm_bound((2 * q.numel() + k.numel() + v.numel()) * esize,
-                               4 * d * pairs * b * hq),
+                               4 * d * pairs * b * hq, dtype),
             )
         del q, k, v, got, want
 
@@ -1267,7 +1330,7 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
             # recurrence's 6 flops per state element per step
             bound=lm_bound(2 * x.numel() * esize + dt.numel() * 4
                            + 2 * bm.numel() * esize + 2 * h * 4 + hf.numel() * 4,
-                           6 * b * t * h * n * p),
+                           6 * b * t * h * n * p, dtype),
         )
         del x, dt, a, bm, cm, dsk, y, hf, yr, hr
     torch.cuda.empty_cache()
@@ -1337,38 +1400,60 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
 
     # -- 7. the LM path end to end in float32: kernels against plain versions ----
     cfg32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
-    plain32 = cfg32.replace(attn_impl="torch")
-    model = HybridLM(cfg32, device=dev, seed=0)
+    model = LM(cfg32, device=dev, seed=0)
     prompt = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (b, t)),
                              dtype=torch.int32, device=dev)
-    steps = {}
-    caches = {}
     reset_attention_counts()
     reset_ssd_counts()
+    want = {"tensor_core": 0, "cuda_core": cfg.num_layers}
+    steps, logit_err = float32_end_to_end(torch, sync, model, cfg32, prompt, None, "hymba-1.5b")
+    if fa_mod.instance_launches != want:
+        fail(f"the float32 prefill launched attention instances {fa_mod.instance_launches}, "
+             f"not the CUDA-core kernel once a layer")
+    if ssd_mod.instance_launches != want:
+        fail(f"the float32 prefill ran SSD instances {ssd_mod.instance_launches}, "
+             f"not the CUDA-core scan once a layer")
+    del model, steps
+    torch.cuda.empty_cache()
+    return rec, lm_launches
+
+
+def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str):
+    """Prefill ``prompt`` (behind ``prefix``, if any) on the kernels
+    (``cfg32``) and on the plain versions (``attn_impl="torch"``), then
+    E2E_DECODE_STEPS decode steps fed the plain path's greedy tokens (teacher
+    forcing); fails unless the prefill logits agree within E2E_LOGIT_TOL and
+    every decisive greedy token (top-two margin above it) is the same.
+    Only the kernels' prefill launches kernels, so the counters read after
+    this call hold its launches. Returns (the last-position logits of each
+    step by path, the prefill logits' max |err|)."""
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    b, t = prompt.shape
+    offset = 0 if prefix is None else prefix.shape[1]
+    max_len = t + offset + E2E_DECODE_STEPS + 1
+    batch = {"tokens": prompt} if prefix is None else {"tokens": prompt, "prefix": prefix}
+    paths = (("kernels", cfg32), ("plain", cfg32.replace(attn_impl="torch")))
+    steps, caches = {}, {}
     with torch.no_grad():
-        for name, c in (("kernels", cfg32), ("plain", plain32)):
+        for name, c in paths:
             sync()
             t0 = time.perf_counter()
             logits, caches[name] = make_prefill_step(c)(
-                model, {"tokens": prompt}, make_cache(c, b, t + E2E_DECODE_STEPS + 1, device=dev))
+                model, batch, make_cache(c, b, max_len, device=prompt.device))
             sync()
             steps[name] = [logits[:, -1]]
-            print(f"float32 prefill ({name}) in {time.perf_counter() - t0:.3f} s", flush=True)
-        if fa_mod.instance_launches != {"tensor_core": 0, "cuda_core": cfg.num_layers}:
-            fail(f"the float32 prefill launched attention instances {fa_mod.instance_launches}, "
-                 f"not the CUDA-core kernel once a layer")
-        if ssd_mod.instance_launches != {"tensor_core": 0, "cuda_core": cfg.num_layers}:
-            fail(f"the float32 prefill ran SSD instances {ssd_mod.instance_launches}, "
-                 f"not the CUDA-core scan once a layer")
+            print(f"{label} float32 prefill ({name}) in {time.perf_counter() - t0:.3f} s",
+                  flush=True)
         logit_err = (steps["kernels"][0] - steps["plain"][0]).abs().max().item()
         if not torch.allclose(steps["kernels"][0], steps["plain"][0],
                               rtol=E2E_LOGIT_TOL, atol=E2E_LOGIT_TOL):
-            fail(f"float32 prefill logits: kernels against plain max |err| {logit_err}")
-        # decode both on the plain path's greedy tokens (teacher forcing)
+            fail(f"{label} float32 prefill logits: kernels against plain max |err| {logit_err}")
         tok = torch.argmax(steps["plain"][0], dim=-1)[:, None].to(torch.int32)
         for i in range(E2E_DECODE_STEPS):
-            for name, c in (("kernels", cfg32), ("plain", plain32)):
-                logits, caches[name] = make_decode_step(c)(model, tok, caches[name], t + i)
+            for name, c in paths:
+                logits, caches[name] = make_decode_step(c)(model, tok, caches[name],
+                                                           t + offset + i)
                 steps[name].append(logits[:, -1])
             tok = torch.argmax(steps["plain"][-1], dim=-1)[:, None].to(torch.int32)
     checked = differ = 0
@@ -1380,15 +1465,259 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
         differ += int((decisive & ~same).sum())
     decode_err = max((lk - lp).abs().max().item()
                      for lk, lp in zip(steps["kernels"], steps["plain"]))
-    print(f"LM float32 end to end: prefill logits max |err| {logit_err:.3g} "
+    print(f"{label} float32 end to end: prefill logits max |err| {logit_err:.3g} "
           f"(tolerance {E2E_LOGIT_TOL}), decode logits max |err| {decode_err:.3g}; greedy "
           f"tokens over 1 + {E2E_DECODE_STEPS} steps: {checked} decisive, {differ} differ",
           flush=True)
     if differ:
-        fail(f"{differ} greedy tokens differ where the top-two margin exceeds {E2E_LOGIT_TOL}")
-    del model, caches, steps
+        fail(f"{label}: {differ} greedy tokens differ where the top-two margin exceeds "
+             f"{E2E_LOGIT_TOL}")
+    del caches
+    return steps, logit_err
+
+
+def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
+    """Phase 7b; returns (kernel records at the families' shapes, by
+    ``kernel:dtype:model``; each family row's launches and the path that
+    made them)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import LM, registry
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    def flag(name: str) -> int:
+        return int(FAMILY_ARGV[FAMILY_ARGV.index(name) + 1])
+
+    b, t, max_new = flag("--batch"), flag("--prompt-len"), flag("--max-new")
+    rec: dict[str, dict] = {}
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def reset_counts() -> None:
+        fa_mod.launches = fa_mod.swa_launches = 0
+        fa_mod.instance_launches.update(dict.fromkeys(fa_mod.INSTANCES, 0))
+        ssd_mod.launches = ssd_mod.kernel_launches = 0
+        ssd_mod.instance_launches.update(dict.fromkeys(ssd_mod.INSTANCES, 0))
+
+    def counts() -> dict:
+        return {"flash_attention": dict(fa_mod.instance_launches),
+                "ssd_scan": dict(ssd_mod.instance_launches),
+                "ssd_scan:kernel_launches": ssd_mod.kernel_launches}
+
+    # -- the two LM kernels at the families' new shapes -------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    attn = {}
+    for arch, name in (("qwen3-0.6b", "qwen3"), ("gemma-2b", "gemma"),
+                       ("deepseek-v2-lite-16b", "mla")):
+        c = get_config(arch)
+        d = c.qk_nope_dim + c.qk_rope_dim if c.attn_kind == "mla" else c.resolved_head_dim
+        attn[name] = (c.num_heads, c.num_kv_heads, d)
+    pairs = t * (t + 1) // 2  # live (query, key) pairs a head under the causal mask
+    for name, (hq, hkv, d) in attn.items():
+        for dname, dtype in dtypes.items():
+            esize = torch.empty((), dtype=dtype).element_size()
+            q = torch.randn((b, hq, t, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, hkv, t, d), generator=gen, device=dev).to(dtype)
+            got = ops.attention(q, k, v, impl="cuda")
+            want = ops.attention(q, k, v, impl="torch")
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = ATTN_TOLS[dname]
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention ({dname}, {name}, D = {d}) disagrees with its plain "
+                     f"version: max |err| {err}")
+            lib = partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
+                          enable_gqa=True)
+            lib_err = (lib().float() - want.float()).abs().max().item()
+            rec[f"flash_attention:{dname}:{name}"] = dict(
+                shape={"q": [b, hq, t, d], "kv": [b, hkv, t, d]},
+                instance=fa_mod.instance(dtype, d), max_abs_err=err,
+                library_max_abs_err=lib_err,
+                ms=time_ms(partial(ops.attention, q, k, v, impl="cuda"), 10),
+                plain_ms=time_ms(partial(ops.attention, q, k, v, impl="torch"), 3),
+                library_ms=time_ms(lib, 10),
+                bound=lm_bound((2 * q.numel() + k.numel() + v.numel()) * esize,
+                               4 * d * pairs * b * hq, dtype),
+            )
+            del q, k, v, got, want
+    mamba = get_config("mamba2-2.7b")
+    h, p, n, g = mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state, mamba.ssm_groups
+    for dname, dtype in dtypes.items():
+        esize = torch.empty((), dtype=dtype).element_size()
+        x = torch.randn((b, t, h, p), generator=gen, device=dev).to(dtype)
+        dt = torch.rand((b, t, h), generator=gen, device=dev) * 0.1
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+        bm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+        cm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dtype)
+        dsk = torch.randn((h,), generator=gen, device=dev)
+        args = (x, dt, a, bm, cm, dsk)
+        before = ssd_mod.kernel_launches
+        y, hf = ops.ssd_scan(*args, impl="cuda", chunk=mamba.ssm_chunk)
+        per_call = ssd_mod.kernel_launches - before
+        yr, hr = ops.ssd_scan(*args, impl="torch")
+        sync()
+        err = max((y.float() - yr.float()).abs().max().item(), (hf - hr).abs().max().item())
+        tol = SSD_TOLS[dname]
+        if not (torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
+                and torch.allclose(hf, hr, rtol=3e-4, atol=3e-4)):
+            fail(f"ssd_scan ({dname}, mamba2, N = {n}) disagrees with its plain version: "
+                 f"max |err| {err}")
+        rec[f"ssd_scan:{dname}:mamba2"] = dict(
+            shape={"x": [b, t, h, p], "bc": [b, t, g, n]},
+            instance=ssd_mod.instance(dtype, n, p), kernel_launches=per_call,
+            phase_ms=device_ms(torch, lambda ev: ssd_mod.ssd_scan_cuda(
+                *args, chunk=mamba.ssm_chunk, events=ev), ssd_mod.PHASES, 10),
+            max_abs_err=err,
+            ms=time_ms(partial(ops.ssd_scan, *args, impl="cuda", chunk=mamba.ssm_chunk), 10),
+            plain_ms=time_ms(partial(ops.ssd_scan, *args, impl="torch"), 2, warmup=0),
+            library_ms=None,
+            bound=lm_bound(2 * x.numel() * esize + dt.numel() * 4
+                           + 2 * bm.numel() * esize + 2 * h * 4 + hf.numel() * 4,
+                           6 * b * t * h * n * p, dtype),
+        )
+        del x, dt, a, bm, cm, dsk, args, y, hf, yr, hr
     torch.cuda.empty_cache()
-    return rec, lm_launches
+    print(f"LM family kernel checks: flash_attention at D = "
+          f"{sorted({d for _, _, d in attn.values()})} and ssd_scan at N = {n} agree with "
+          f"their plain versions in bf16 and float32", flush=True)
+
+    # -- serve each family at full width and depth, bf16 ------------------------
+    # gemma's embedding scale promotes the residual stream to float32
+    gemma = get_config("gemma-2b")
+    probe = {"tok": torch.zeros((1, gemma.d_model), dtype=torch.bfloat16, device=dev)}
+    promoted = L.embed_tokens(probe, torch.zeros((1, 1), dtype=torch.int32, device=dev), gemma)
+    if promoted.dtype != torch.float32:
+        fail(f"gemma-2b's scaled embeddings are {promoted.dtype}, not float32 as the reference's")
+    launches: dict = {}
+    for arch, expect in FAMILY_SERVED.items():
+        cfg = get_config(arch)
+        argv = ["--arch", arch, *FAMILY_ARGV]
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        served = serve_main(argv)
+        sync()
+        wall_s = time.perf_counter() - t0
+        got = counts()
+        print(json.dumps({"lm_family": arch, "argv": " ".join(argv), "wall_s": wall_s,
+                          "params": registry.count_params(cfg),
+                          "prefill_ms": served["prefill_ms"],
+                          "prefill_tok_per_s": served["prefill_tok_per_s"],
+                          "decode_tok_per_s": served["decode_tok_per_s"],
+                          "peak_bytes": served["peak_bytes"], "launches": got,
+                          "nvidia_smi": nvidia_smi()}), flush=True)
+        for kernel, (inst, want) in expect.items():
+            total = sum(got[kernel].values())
+            if total != want or got[kernel][inst] != want:
+                fail(f"{arch}: the served path launched {kernel} instances {got[kernel]}, "
+                     f"not {inst} {want} times (a launch per layer per prefill)")
+        if got["ssd_scan:kernel_launches"] != len(ssd_mod.PHASES) * sum(got["ssd_scan"].values()):
+            fail(f"{arch}: {got['ssd_scan:kernel_launches']} SSD kernel launches, not "
+                 f"{len(ssd_mod.PHASES)} a call")
+        for toks in served["outputs"]:
+            if toks.shape != (b, t + max_new) or toks.min() < 0 or toks.max() >= cfg.vocab:
+                fail(f"{arch} served tokens: shape {toks.shape} or ids outside [0, {cfg.vocab})")
+        launches[arch] = got
+        del served
+        torch.cuda.empty_cache()
+
+    # deepseek scores through LM.forward: MLA expands its keys and values and
+    # attends on the kernel at D = 192, a launch a layer
+    ds = get_config("deepseek-v2-lite-16b")
+    model = LM(ds, device=dev, seed=0)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(0, ds.vocab, (b, t)),
+                             dtype=torch.int32, device=dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model(prompt)
+    sync()
+    score_s = time.perf_counter() - t0
+    got = launches[f"{ds.name}:forward"] = counts()
+    d192 = ds.qk_nope_dim + ds.qk_rope_dim
+    print(json.dumps({"lm_family": ds.name, "path": "LM.forward (scoring)", "shape": [b, t],
+                      "wall_s": score_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": got, "nvidia_smi": nvidia_smi()}), flush=True)
+    if got["flash_attention"] != {"tensor_core": 0, "cuda_core": ds.num_layers}:
+        fail(f"deepseek scoring launched attention instances {got['flash_attention']}, not "
+             f"the CUDA-core kernel at D = {d192} once a layer")
+    if tuple(logits.shape) != (b, t, ds.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"deepseek scoring logits: shape {tuple(logits.shape)} or non-finite values")
+    del model, logits
+    torch.cuda.empty_cache()
+
+    # -- float32 end to end at full width, cut to FAMILY_E2E_LAYERS deep --------
+    for arch, what in FAMILY_E2E.items():
+        cfg32 = get_config(arch).replace(num_layers=FAMILY_E2E_LAYERS,
+                                         param_dtype=torch.float32,
+                                         compute_dtype=torch.float32)
+        label = f"{arch} ({FAMILY_E2E_LAYERS} of {get_config(arch).num_layers} layers; {what})"
+        model = LM(cfg32, device=dev, seed=0)
+        rng = np.random.default_rng(1)
+        prompt = torch.as_tensor(rng.integers(0, cfg32.vocab, (b, t)), dtype=torch.int32,
+                                 device=dev)
+        prefix = None
+        if cfg32.frontend:
+            prefix = torch.as_tensor(rng.standard_normal(
+                (b, cfg32.frontend_len, cfg32.d_model)).astype(np.float32) * 0.1, device=dev)
+        if cfg32.attn_kind == "mla":  # scoring: the one MLA path on the kernel
+            reset_counts()
+            with torch.no_grad():
+                fk = T.forward(model, prompt, cfg32)[0]
+                fwd = counts()
+                fp = T.forward(model, prompt, cfg32.replace(attn_impl="torch"))[0]
+            ferr = (fk - fp).abs().max().item()
+            print(f"{label}: forward logits max |err| {ferr:.3g} (tolerance {E2E_LOGIT_TOL}), "
+                  f"attention {fwd['flash_attention']}", flush=True)
+            if fwd["flash_attention"] != {"tensor_core": 0, "cuda_core": FAMILY_E2E_LAYERS}:
+                fail(f"{arch} float32 forward launched attention {fwd['flash_attention']}")
+            if not torch.allclose(fk, fp, rtol=E2E_LOGIT_TOL, atol=E2E_LOGIT_TOL):
+                fail(f"{arch} float32 forward logits: kernels against plain max |err| {ferr}")
+            del fk, fp
+        reset_counts()
+        steps, _ = float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label)
+        got = counts()
+        want_attn = 0 if cfg32.family == "ssm" or cfg32.attn_kind == "mla" else FAMILY_E2E_LAYERS
+        want_ssd = FAMILY_E2E_LAYERS if cfg32.family == "ssm" else 0
+        if (got["flash_attention"] != {"tensor_core": 0, "cuda_core": want_attn}
+                or got["ssd_scan"] != {"tensor_core": 0, "cuda_core": want_ssd}):
+            fail(f"{arch} float32 prefill launched {got}, not the CUDA-core instances "
+                 f"({want_attn} attention, {want_ssd} SSD)")
+        del model, steps, prompt, prefix
+        torch.cuda.empty_cache()
+
+    for arch in FAMILY_META_ONLY:  # beyond one card: counted on the meta device
+        cfg = get_config(arch)
+        total = sum(prm.numel() for prm in LM(cfg, device="meta").parameters())
+        if total != registry.count_params(cfg):
+            fail(f"{arch}: the meta-device model holds {total} parameters, the spec "
+                 f"{registry.count_params(cfg)}")
+        print(json.dumps({"lm_family": arch, "params": total,
+                          "active_params": registry.count_active_params(cfg),
+                          "bf16_bytes": 2 * total, "served": False}), flush=True)
+
+    # each family row's launches on its path, and the path
+    rows = {}
+    for row, (kernel, run, path) in {
+            "flash_attention:qwen3": ("flash_attention", "qwen3-0.6b",
+                                      "launch.serve.main --arch qwen3-0.6b"),
+            "flash_attention:gemma": ("flash_attention", "gemma-2b",
+                                      "launch.serve.main --arch gemma-2b"),
+            "flash_attention:mla": ("flash_attention", f"{ds.name}:forward",
+                                    f"LM.forward, {ds.name}, bf16, full depth"),
+            "ssd_scan:mamba2": ("ssd_scan", "mamba2-2.7b",
+                                "launch.serve.main --arch mamba2-2.7b")}.items():
+        rows[row] = sum(launches[run][kernel].values())
+        rows[f"{row}:path"] = path
+    return rec, rows
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Batched serving example on the PyTorch/CUDA port: prefill + greedy decode
-over a request stream for the ported architecture (hymba-1.5b), reduced.
+over a request stream for any ported decoder-only architecture (``--arch``),
+reduced.
 
   PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
   PYTHONPATH=src python examples/serve_lm_torch.py          # on the CUDA card

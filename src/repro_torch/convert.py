@@ -17,7 +17,7 @@ from repro_torch.configs.wsi import WSIConfig
 from repro_torch.core.regions import host_tensor
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import HybridLM
+from repro_torch.models.transformer import LM
 
 
 def from_reference(
@@ -31,12 +31,13 @@ def from_reference(
     return WSIConfig(**dict(cfg_fields)), torch.as_tensor(m, device=resolve_device(device))
 
 
-def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> HybridLM:
+def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
     """The reference's LM parameter pytree, as nested dicts of numpy arrays
-    (layer stacks as ``(L, ...)`` leaves), loaded into the port's model on
-    ``device`` (``None``: the CUDA card). Every leaf must be there, with the
-    spec's shape; nothing else may be."""
-    model = HybridLM(cfg, device="meta").to_empty(device=resolve_device(device))
+    (layer stacks as ``(L, ...)`` leaves: ``layers``, ``dense_layers``,
+    ``global_layers``), loaded into the port's model on ``device``
+    (``None``: the CUDA card). Every leaf must be there, with the spec's
+    shape; nothing else may be."""
+    model = LM(cfg, device="meta").to_empty(device=resolve_device(device))
     seen = set()
 
     def load(dst: torch.Tensor, arr, name: str) -> None:
@@ -46,20 +47,39 @@ def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> Hy
         dst.copy_(src)
         seen.add(name)
 
+    def child(module: torch.nn.Module, key: str, name: str):
+        if (key not in dict(module.named_children())
+                and key not in dict(module.named_parameters(recurse=False))):
+            raise ValueError(f"{name}: not a parameter of the port's {cfg.name}")
+        return getattr(module, key)
+
+    def walk(module: torch.nn.Module, sub: Mapping, name: str, layer=None) -> None:
+        """Load ``sub`` into ``module``; ``layer`` picks one slice of a stacked leaf."""
+        for key, val in sub.items():
+            dst = child(module, key, f"{name}.{key}")
+            if isinstance(val, Mapping):
+                walk(dst, val, f"{name}.{key}", layer)
+            else:
+                load(dst, val if layer is None else np.asarray(val)[layer], f"{name}.{key}")
+
     with torch.no_grad():
-        for group in ("embed", "final_norm"):
-            for leaf, arr in tree[group].items():
-                load(model[group][leaf], arr, f"{group}.{leaf}")
-        for stack in ("global_layers", "layers"):
-            for sub, leaves in tree.get(stack, {}).items():
-                for leaf, arr in leaves.items():
-                    arr = np.asarray(arr)
-                    if arr.shape[0] != len(model[stack]):
-                        raise ValueError(f"{stack}.{sub}.{leaf}: {arr.shape[0]} layers in the "
-                                         f"reference, {len(model[stack])} in the port")
-                    for i, layer in enumerate(model[stack]):
-                        load(layer[sub][leaf], arr[i], f"{stack}.{i}.{sub}.{leaf}")
+        for group, sub in tree.items():
+            dst = child(model, group, group)
+            if not isinstance(dst, torch.nn.ModuleList):
+                walk(dst, sub, group)
+                continue
+            depth = {np.asarray(v).shape[0] for v in _leaves(sub)}
+            if depth != {len(dst)}:
+                raise ValueError(f"{group}: {sorted(depth)} layers in the reference, "
+                                 f"{len(dst)} in the port")
+            for i, layer in enumerate(dst):  # a stack: leaves carry the layer axis first
+                walk(layer, sub, f"{group}.{i}", layer=i)
     missing = {name for name, _ in model.named_parameters()} - seen
     if missing:
         raise ValueError(f"the reference tree lacks {sorted(missing)}")
     return model
+
+
+def _leaves(tree: Mapping) -> list:
+    return [leaf for v in tree.values()
+            for leaf in (_leaves(v) if isinstance(v, Mapping) else [v])]

@@ -2,8 +2,9 @@
 // sliding window, query offset and ragged key length. Two instances:
 //   * the tensor-core instance (bf16 at D = 64 and 128), in the
 //     FlashAttention-2 layout on mma.sync m16n8k16 bf16 (namespace tc below);
-//   * the CUDA-core instance (float32 at any D, bf16 at D in {16, 24, 32}),
-//     f32 arithmetic throughout, which holds the float32 tolerance of 3e-4.
+//   * the CUDA-core instance (float32 at any D, bf16 at D in {16, 24, 32, 192,
+//     256}), f32 arithmetic throughout, which holds the float32 tolerance of
+//     3e-4.
 // The wrapper (kernels/flash_attention.py::instance) picks one by dtype and D.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas, which
@@ -24,10 +25,12 @@
 // above the ~9 us that the 31 MB of q, k, v and out take at 3.35 TB/s.
 //
 // CUDA-core design: grid (B*Hq, ceil(Tq/64)); a block owns 64 queries of one head.
-// Each query is held by kLanes neighbouring threads (1 for D <= 32, D/32
-// above), each with a kSlice-wide slice of q (pre-scaled) and of the float32
-// accumulator in registers. The block stages 32-key tiles of K and V, converted
-// to float32, in shared memory; every thread of a query reads the same key row
+// Each query is held by kLanes neighbouring threads (1 for D <= 32, D/32 to
+// D = 128, 8 above: 24 dims a thread at D = 192, 32 at D = 256), each with a
+// kSlice-wide slice of q (pre-scaled) and of the float32 accumulator in
+// registers. The block stages 32-key tiles of K and V, converted to float32, in
+// dynamic shared memory (73,728 bytes at D = 256, above the 48 KB a block gets
+// without asking); every thread of a query reads the same key row
 // (a broadcast), and the kLanes slices of a row are padded apart so that they
 // fall in different banks. Per tile a thread computes its 32 scores (partial
 // dots summed across the query's lanes with shuffles), then updates the running
@@ -44,13 +47,16 @@ namespace {
 constexpr int kBlockQ = 64;  // queries per block
 constexpr int kBlockK = 32;  // keys per shared-memory tile
 
-// How a head_dim D is split over the threads of one query.
+// How a head_dim D is split over the threads of one query. At most 8 lanes a
+// query (512 threads a block, 128 registers a thread): D/32 would give 6 lanes
+// at D = 192, which a warp's shuffles cannot group.
 template <int D>
 struct Split {
-  static constexpr int kLanes = D >= 64 ? D / 32 : 1;  // threads per query
+  static constexpr int kLanes = D < 64 ? 1 : (D <= 128 ? D / 32 : 8);  // threads per query
   static constexpr int kSlice = D / kLanes;            // dims per thread
   static constexpr int kPad = kLanes > 1 ? 4 : 0;      // floats between slices
   static constexpr int kRow = kLanes * (kSlice + kPad);  // floats per staged key row
+  static constexpr int kSmemBytes = 2 * kBlockK * kRow * (int)sizeof(float);  // K and V tiles
   static_assert(D % kLanes == 0 && 32 % kLanes == 0, "unsupported head_dim");
 };
 
@@ -62,8 +68,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using S = Split<D>;
   constexpr int kLanes = S::kLanes, kSlice = S::kSlice, kRow = S::kRow;
   constexpr int kThreads = kBlockQ * kLanes;
-  __shared__ __align__(16) float ks[kBlockK * kRow];
-  __shared__ __align__(16) float vs[kBlockK * kRow];
+  extern __shared__ __align__(16) float fa_smem[];
+  float* ks = fa_smem;             // [kBlockK][kRow]
+  float* vs = ks + kBlockK * kRow;  // [kBlockK][kRow]
 
   const int bh = blockIdx.x;  // batch * Hq + query head
   const int kv_row = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
@@ -152,8 +159,14 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
            int tq, int tk, float scale, int causal, int window, int q_offset,
            cudaStream_t stream) {
+  constexpr int kSmem = Split<D>::kSmemBytes;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid(b * hq, (tq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, D><<<grid, kBlockQ * Split<D>::kLanes, 0, stream>>>(
+  flash_attention_kernel<T, D><<<grid, kBlockQ * Split<D>::kLanes, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), hq, hkv, tq, tk, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
@@ -169,6 +182,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, in
     case 32: return launch<T, 32>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
     case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
     case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+    case 192: return launch<T, 192>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+    case 256: return launch<T, 256>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -177,7 +192,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, in
 
 // q (b, hq, tq, d), k and v (b, hkv, tk, d), out like q; all contiguous, float32
 // (bf16 = 0) or bfloat16 (bf16 = 1). window < 0 means no window. The caller
-// checks d in {16, 24, 32, 64, 128} and hq % hkv == 0.
+// checks d in {16, 24, 32, 64, 128, 192, 256} and hq % hkv == 0.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                   int hq, int hkv, int tq, int tk, int d, int bf16, float scale,
                                   int causal, int window, int q_offset, cudaStream_t stream) {

@@ -45,7 +45,8 @@
 //   * float32 products with both operands in shared memory: in bf16 phase 3
 //     runs C B^T and the intra-chunk product on mma.sync m16n8k16, the scaled
 //     S going from the accumulators straight into A fragments (the P V step of
-//     flash_attention.cu's tensor-core instance); the float32 instance keeps
+//     flash_attention.cu's tensor-core instance), as a hi and a lo part so
+//     that S keeps 16 bits; the float32 instance keeps
 //     CUDA-core products but gives each thread a 4x4 register tile, so one
 //     pair of 16-byte shared loads feeds 16 multiply-adds.
 // Phase 1's S_c stays float32 on the CUDA cores in both instances: the weight
@@ -289,7 +290,11 @@ ssd_state_passing(const float* __restrict__ cd, float* __restrict__ states,
 
 // Phase 3, CUDA-core instance: float32 products in 4x4 register tiles. C, B
 // are staged transposed (N, Lp) and G = (C B^T . decay . dt) transposed
-// (Lp, Lp), so that four consecutive rows are one 16-byte load.
+// (Lp, Lp), so that four consecutive rows are one 16-byte load. Once G is made
+// B^T is not read again, and the (N, P) state entering the chunk is loaded
+// into its room: at N = 128 (mamba2-2.7b), P = 64 and L = 128 that keeps the
+// block at 230,400 bytes, where separate rooms would need 263,168, above the
+// 232,448 a block may have.
 template <typename T>
 __global__ void __launch_bounds__(kScanThreads)
 ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ cd, const T* __restrict__ cm,
@@ -299,10 +304,10 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ cd, const T* _
   const int lp = round_up(chunk, 16), p4 = round_up(p, 4);
   extern __shared__ __align__(16) float sm3[];
   float* ct = sm3;             // (n, lp)
-  float* bt = ct + n * lp;     // (n, lp)
-  float* gt = bt + n * lp;     // (lp, lp): gt[j][i] = G[i][j], zero above the diagonal
-  float* hs = gt + lp * lp;    // (n, p4) state entering the chunk
-  float* cum = hs + n * p4;    // (lp,)
+  float* bt = ct + n * lp;     // (n, lp) until G is made
+  float* hs = bt;              // then (n, p4): the state entering the chunk
+  float* gt = bt + max(n * lp, n * p4);  // (lp, lp): gt[j][i] = G[i][j], zero above the diagonal
+  float* cum = gt + lp * lp;   // (lp,)
   float* dts = cum + lp;       // (lp,)
   T* xs = reinterpret_cast<T*>(dts + lp);  // (lp, p4)
 
@@ -323,11 +328,6 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ cd, const T* _
     const size_t src = (((size_t)b * t + t0 + j) * g + grp) * n + s;
     ct[e] = j < len ? to_f32(cm[src]) : 0.f;
     bt[e] = j < len ? to_f32(bm[src]) : 0.f;
-  }
-  const float* hi = states + ((size_t)bh * nc + c) * n * p;
-  for (int e = tid; e < n * p4; e += kScanThreads) {
-    const int s = e / p4, col = e % p4;
-    hs[e] = col < p ? hi[s * p + col] : 0.f;
   }
   cp_async_wait_all();
   __syncthreads();
@@ -360,6 +360,13 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ cd, const T* _
       }
       *reinterpret_cast<float4*>(gt + j * lp + i0) = make_float4(out[0], out[1], out[2], out[3]);
     }
+  }
+  __syncthreads();  // B^T is done with: the state takes its room
+
+  const float* hi = states + ((size_t)bh * nc + c) * n * p;
+  for (int e = tid; e < n * p4; e += kScanThreads) {
+    const int s = e / p4, col = e % p4;
+    hs[e] = col < p ? hi[s * p + col] : 0.f;
   }
   __syncthreads();
 
@@ -411,12 +418,20 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ cd, const T* _
 // padded by 16 bytes so that the 8 rows an ldmatrix phase reads fall in 8
 // different bank groups. Per key tile of 16 (none above the warp's diagonal):
 // S = C B^T on mma.sync, scaled in its f32 accumulators by
-// exp(cum_i - cum_j) dt_j where j <= i (0 elsewhere), packed to bf16 A
-// fragments and multiplied with X through ldmatrix.trans, onto accumulators
+// exp(cum_i - cum_j) dt_j where j <= i (0 elsewhere), packed to two bf16 A
+// fragments (hi and lo) and multiplied with X through ldmatrix.trans, onto accumulators
 // that start from the inter-chunk term exp(cum_i) C_i . H_c, float32
 // multiply-adds in registers, as is the skip.
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
+
+// Splits the pair (x0, x1) into two bf16 pairs, hi (x rounded) and lo (what
+// that rounding left, rounded again): hi + lo is x to about 2^-16 relative.
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
 
 // At P <= 64 five blocks fit an SM within 102 registers a thread; P = 128
 // would spill there and takes two.
@@ -522,15 +537,24 @@ ssd_chunk_scan_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__
           s[nt][e] = jj <= i ? s[nt][e] * __expf(cum_r[e >> 1] - cjj) * djj : 0.f;
         }
       }
-      const unsigned a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      // S as two bf16 fragments, hi and the rest (split_bf16), each multiplied
+      // with x: the product keeps some 16 bits of S where one bf16 rounding
+      // keeps 8, which at N = 128 (C.B sums 128 products) left errors of 0.05
+      // in a y near 0
+      unsigned ahi[4], alo[4];
+      split_bf16(s[0][0], s[0][1], ahi[0], alo[0]);
+      split_bf16(s[0][2], s[0][3], ahi[1], alo[1]);
+      split_bf16(s[1][0], s[1][1], ahi[2], alo[2]);
+      split_bf16(s[1][2], s[1][3], ahi[3], alo[3]);
 #pragma unroll
       for (int nt = 0; nt < kPTiles; nt += 2) {
         unsigned b0, b1, b2, b3;
         const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
         ldsm_x4_trans(smem_addr(xs + row * kXRow + 8 * nt + (lane >> 4) * 8), b0, b1, b2, b3);
-        mma_bf16(o[nt], a, b0, b1);
-        mma_bf16(o[nt + 1], a, b2, b3);
+        mma_bf16(o[nt], ahi, b0, b1);
+        mma_bf16(o[nt], alo, b0, b1);
+        mma_bf16(o[nt + 1], ahi, b2, b3);
+        mma_bf16(o[nt + 1], alo, b2, b3);
       }
     }
 
@@ -566,7 +590,8 @@ size_t state_smem(int chunk, int p, int n) {
 template <typename T>
 size_t scan_smem(int chunk, int p, int n) {
   const int lp = round_up(chunk, 16), p4 = round_up(p, 4);
-  return sizeof(float) * (2 * (size_t)n * lp + (size_t)lp * lp + (size_t)n * p4 + 2 * lp) +
+  const size_t bt_or_state = (size_t)n * (lp > p4 ? lp : p4);  // B^T, then the state
+  return sizeof(float) * ((size_t)n * lp + bt_or_state + (size_t)lp * lp + 2 * lp) +
          sizeof(T) * (size_t)lp * p4;
 }
 

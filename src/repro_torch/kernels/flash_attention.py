@@ -6,7 +6,8 @@ version is ``ref.attention_ref``; ``ops.attention`` picks between them.
 The source holds two instances of the kernel, and :func:`instance` picks one
 by dtype and head_dim: bf16 at D = 64 or 128 runs on the tensor cores
 (``mma.sync`` in bf16, K and V staged as bf16), everything else on the CUDA
-cores in float32 (which holds float32's 3e-4; TF32 would not).
+cores in float32 (which holds float32's 3e-4; TF32 would not), among them
+D = 192 (nemotron, MLA's scoring path) and 256 (gemma) in either dtype.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ swa_launches = 0  # of those, launches with a sliding window
 INSTANCES = ("tensor_core", "cuda_core")
 instance_launches = dict.fromkeys(INSTANCES, 0)  # of those, launches per instance
 
-HEAD_DIMS = (16, 24, 32, 64, 128)  # the CUDA-core kernel's template instances
+HEAD_DIMS = (16, 24, 32, 64, 128, 192, 256)  # the CUDA-core kernel's template instances
 TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's (bf16 only)
 DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_Q = 64  # queries per block in both instances

@@ -602,7 +602,8 @@ def ssd_chunk_scan_ref(
     y_i = sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i.H_c + D x_i.
 
     exp is taken of -inf above the diagonal, never of the positive exponent
-    there. ``intra_dtype`` rounds the scaled C B^T to that dtype before the
+    there. ``intra_dtype`` splits the scaled C B^T into two parts of that
+    dtype (S rounded, and what the rounding left, rounded again) before the
     product with x, as the tensor-core instance does with bf16.
     """
     bsz, t, h, p = x.shape
@@ -615,7 +616,8 @@ def ssd_chunk_scan_ref(
                                 torch.tensor(float("-inf"), device=x.device)))
     s = torch.einsum("bhcln,bhcmn->bhclm", ch, bh) * seg * dth[..., None, :]
     if intra_dtype is not None:
-        s = s.to(intra_dtype).float()
+        hi = s.to(intra_dtype).float()
+        s = hi + (s - hi).to(intra_dtype).float()
     y = torch.einsum("bhclm,bhcmp->bhclp", s, xh)
     y = y + torch.exp(cum)[..., None] * torch.einsum("bhcln,bhcnp->bhclp", ch, entering)
     if d_ is not None:

@@ -52,9 +52,10 @@ def smem_bytes(chunk: int, p: int, n: int,
 
     Chunk state: w_j B_j (Lp, N), which later holds the thread groups'
     partial sums (at least 16 floats a thread), dt and cum, 32 warp totals in
-    float32; x (Lp, P) and B (Lp, N) in ``dtype``, N padded to 4. Chunk scan on the CUDA cores: C^T and
-    B^T (N, Lp), the (Lp, Lp) decay-weighted C B^T, the (N, P) state, cum and
-    dt in float32, x (Lp, P) in ``dtype``. On the tensor cores: the state,
+    float32; x (Lp, P) and B (Lp, N) in ``dtype``, N padded to 4. Chunk scan
+    on the CUDA cores: C^T and B^T (N, Lp), the (N, P) state later in B^T's
+    room, the (Lp, Lp) decay-weighted C B^T, cum and dt in float32, x (Lp, P)
+    in ``dtype``. On the tensor cores: the state,
     cum and dt in float32, x (Lp, P+8) and B, C (Lp, N+8) in bf16 (rows
     padded by 16 bytes).
     """
@@ -64,7 +65,7 @@ def smem_bytes(chunk: int, p: int, n: int,
     if instance(dtype, n, p) == "tensor_core":
         scan = 4 * (n * p + 2 * lp) + 2 * (lp * (p + 8) + 2 * lp * (n + 8))
     else:
-        scan = 4 * (2 * n * lp + lp * lp + n * p4 + 2 * lp) + esize * lp * p4
+        scan = 4 * (n * lp + n * max(lp, p4) + lp * lp + 2 * lp) + esize * lp * p4
     return {"chunk_state": state, "chunk_scan": scan}
 
 

@@ -1,8 +1,9 @@
 """Batched serving driver: prefill + greedy decode over a request queue.
 
-On the card (the default device) at full width:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
-      --requests 4 --batch 2 --prompt-len 2048 --max-new 32
+Any decoder-only architecture of ``repro_torch.configs`` (all but the
+encoder-decoder one). On the card (the default device) at full width:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --requests 2 --batch 2 --prompt-len 2048 --max-new 32
 On the CPU, reduced:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
 """
@@ -11,10 +12,11 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import HybridLM
+from repro_torch.models import LM
 from repro_torch.serve import generate
 
 
@@ -36,7 +38,9 @@ def main(argv=None) -> dict:
         cfg = cfg.scaled_down(vocab=512)
     dev = resolve_device(args.device)
     print(f"[serve] arch={cfg.name} family={cfg.family} device={dev}")
-    params = HybridLM(cfg, device=dev, seed=args.seed)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = LM(cfg, device=dev, seed=args.seed)
     rng = np.random.default_rng(args.seed)
 
     done = 0
@@ -44,9 +48,13 @@ def main(argv=None) -> dict:
     while done < args.requests:
         bs = min(args.batch, args.requests - done)
         prompts = rng.integers(0, cfg.vocab, (bs, args.prompt_len)).astype(np.int32)
+        prefix = None
+        if cfg.frontend:  # the modality stub's embeddings, drawn as the reference draws them
+            prefix = (rng.standard_normal((bs, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+                      * 0.1)
         stats: dict = {}
         out = generate(params, cfg, prompts, max_new=args.max_new,
-                       temperature=args.temperature, device=dev, stats=stats)
+                       temperature=args.temperature, prefix=prefix, device=dev, stats=stats)
         outputs.append(out.cpu().numpy())
         prefill_s.append(stats["prefill_s"])
         decode_s += stats["decode_s"]
@@ -59,12 +67,16 @@ def main(argv=None) -> dict:
           f"({prefill_tokens / sum(prefill_s):.1f} tok/s)")
     print(f"[serve] decode: {decode_tokens} new tokens in {decode_s:.3f}s "
           f"({decode_tokens / decode_s:.1f} tok/s)")
+    # the most the device held at once, weights included (not measured on the CPU)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    print(f"[serve] peak memory: {'not measured on the CPU' if peak is None else f'{peak} bytes'}")
     return {
         "outputs": outputs,
         "prefill_ms": prefill_ms,
         "prefill_tok_per_s": prefill_tokens / sum(prefill_s),
         "decode_tok_per_s": decode_tokens / decode_s,
         "tok_per_s": decode_tokens / (sum(prefill_s) + decode_s),
+        "peak_bytes": peak,
         "device": str(dev),
     }
 

@@ -1,7 +1,7 @@
 """Unified model configuration (a copy of ``repro.models.config``).
 
 One dataclass describes every family the reference has; the port runs the
-hybrid family so far (``models.transformer``). Exact per-architecture
+decoder-only ones (``models.transformer``), not yet ``encdec``. Exact per-architecture
 values live in ``repro_torch.configs``. Dtypes are ``torch.dtype``s, and
 ``attn_impl`` takes the port's kernel choices (``kernels.ops``).
 """

@@ -1,5 +1,5 @@
-"""Neural building blocks of the hybrid (Hymba) family, in PyTorch
-(``repro.models.layers``, the pieces that family uses).
+"""Neural building blocks of every decoder-only family, in PyTorch
+(``repro.models.layers``).
 
 Plain functions on tensors: ``p`` is a mapping from parameter name to
 tensor (a ``transformer.ParamGroup``), laid out as the reference's spec
@@ -9,6 +9,7 @@ which launches the hand-written kernels for CUDA tensors.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -32,8 +33,28 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (y * w.float()).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Computed in float32, then cast back to x's dtype."""
+    dtype = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dtype)
+
+
 def norm_spec(cfg: ModelConfig) -> dict:
+    if cfg.norm_type == "layernorm":
+        return {"w": ParamSpec((cfg.d_model,), ("embed",), cfg.param_dtype, "ones"),
+                "b": ParamSpec((cfg.d_model,), ("embed",), cfg.param_dtype, "zeros")}
     return {"w": ParamSpec((cfg.d_model,), ("embed",), cfg.param_dtype, "ones")}
+
+
+def apply_norm(p: Any, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
+    return rms_norm(x, p["w"])
 
 
 # ---------------------------------------------------------------------------
@@ -53,24 +74,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# GQA attention (with sliding window and KV cache)
+# GQA attention (with optional qk-norm, sliding window and KV cache)
 # ---------------------------------------------------------------------------
 def attention_spec(cfg: ModelConfig) -> dict:
     hd = cfg.resolved_head_dim
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    return {
+    p = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", None), cfg.param_dtype),
         "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", None), cfg.param_dtype),
         "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", None), cfg.param_dtype),
         "wo": ParamSpec((h, hd, d), ("heads", None, "embed"), cfg.param_dtype),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = ParamSpec((hd,), (None,), cfg.param_dtype, "ones")
+        p["k_norm"] = ParamSpec((hd,), (None,), cfg.param_dtype, "ones")
+    return p
 
 
 def qkv_project(p: Any, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """(q (B,S,H,hd), k, v (B,S,kv,hd)), q and k rotated."""
+    """(q (B,S,H,hd), k, v (B,S,kv,hd)), q and k normalised per head (qk-norm)
+    and rotated."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -150,21 +179,224 @@ def _masked_attention(qh, keys, vals, mask, cfg: ModelConfig, hd: int) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP
+# MLA attention (DeepSeek-V2): low-rank compressed KV + decoupled RoPE
 # ---------------------------------------------------------------------------
-def mlp_spec(cfg: ModelConfig) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mla_spec(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "w1": ParamSpec((d, f), ("embed", "ffn"), cfg.param_dtype),
-        "w2": ParamSpec((f, d), ("ffn", "embed"), cfg.param_dtype),
-        "w3": ParamSpec((d, f), ("embed", "ffn"), cfg.param_dtype),
+        "wq": ParamSpec((d, h, dn + dr), ("embed", "heads", None), cfg.param_dtype),
+        "w_dkv": ParamSpec((d, r), ("embed", "kv_lora"), cfg.param_dtype),
+        "w_kr": ParamSpec((d, dr), ("embed", None), cfg.param_dtype),
+        "kv_norm": ParamSpec((r,), ("kv_lora",), cfg.param_dtype, "ones"),
+        "w_uk": ParamSpec((r, h, dn), ("kv_lora", "heads", None), cfg.param_dtype),
+        "w_uv": ParamSpec((r, h, dv), ("kv_lora", "heads", None), cfg.param_dtype),
+        "wo": ParamSpec((h, dv, d), ("heads", None, "embed"), cfg.param_dtype),
     }
 
 
-def mlp_forward(p: Any, x: torch.Tensor) -> torch.Tensor:
+def mla_forward(
+    p: Any,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    positions: torch.Tensor,  # (B, S)
+    *,
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (ckv (B,T,r), krope (B,T,dr))
+    cache_pos: int | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """Returns (out (B,S,d), the compressed cache or None).
+
+    With a cache (prefill and decode) the new c_kv and k_rope are written
+    into it in place and the queries attend over the whole cache through the
+    absorbed form: scores (q_nope W_uk) . c_kv + q_rope . k_rope, so the cache
+    stays compressed; plain ops, no kernel. Without one (scoring) the keys
+    and values are expanded and go through ``ops.attention``: q and k have
+    dn + dr dims, v has dv, and the kernel takes one head_dim, so v is padded
+    with zeros to dn + dr and the output sliced back to dv (the padded
+    columns of the output are 0; the scores are untouched).
+    """
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype)), p["kv_norm"])
+    k_rope = apply_rope(torch.einsum("bsd,dr->bsr", x, p["w_kr"].to(x.dtype))[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0, :]
+
+    scale = 1.0 / np.sqrt(dn + dr)
+    new_cache = None
+    if kv_cache is not None:
+        cc, cr = kv_cache
+        start = 0 if cache_pos is None else int(cache_pos)
+        t = cc.shape[1]
+        at = max(0, min(start, t - s))  # clamped, as dynamic_update_slice is
+        cc[:, at:at + s] = c_kv.to(cc.dtype)
+        cr[:, at:at + s] = k_rope.to(cr.dtype)
+        new_cache = (cc, cr)
+        f32 = torch.float32
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(f32), p["w_uk"].to(f32))
+        logits = torch.einsum("bshr,btr->bhst", q_abs, cc.to(f32))
+        logits += torch.einsum("bshr,btr->bhst", q_rope.to(f32), cr.to(f32))
+        logits *= scale
+        qpos = (start + torch.arange(s, device=x.device))[:, None]
+        kpos = torch.arange(t, device=x.device)[None, :]
+        logits = torch.where((kpos <= qpos)[None, None], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", probs, cc.to(f32))
+        out = torch.einsum("bshr,rhv->bshv", ctx, p["w_uv"].to(f32)).to(x.dtype)
+    else:
+        k_nope = torch.einsum("bsr,rhn->bshn", c_kv, p["w_uk"].to(x.dtype))
+        v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"].to(x.dtype))
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        if dv > dn + dr:
+            raise ValueError(f"MLA: v_head_dim {dv} above the query's {dn + dr}")
+        v_pad = F.pad(v, (0, dn + dr - dv))
+        out = ops.attention(_heads_first(q_full), _heads_first(k_full), _heads_first(v_pad),
+                            causal=True, impl=cfg.attn_impl)
+        out = out.transpose(1, 2)[..., :dv]
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs (dense variants)
+# ---------------------------------------------------------------------------
+def mlp_spec(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {
+        "w1": ParamSpec((d, f), ("embed", "ffn"), cfg.param_dtype),
+        "w2": ParamSpec((f, d), ("ffn", "embed"), cfg.param_dtype),
+    }
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["w3"] = ParamSpec((d, f), ("embed", "ffn"), cfg.param_dtype)
+    return p
+
+
+def mlp_forward(p: Any, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """swiglu, geglu, relu2 (nemotron's squared ReLU) or gelu; gelu is the
+    tanh approximation, as the reference's ``approximate=True``."""
     h = torch.einsum("bsd,df->bsf", x, p["w1"].to(x.dtype))
-    h = F.silu(h) * torch.einsum("bsd,df->bsf", x, p["w3"].to(x.dtype))
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(h) * torch.einsum("bsd,df->bsf", x, p["w3"].to(x.dtype))
+    elif cfg.mlp_kind == "geglu":
+        h = F.gelu(h, approximate="tanh") * torch.einsum("bsd,df->bsf", x, p["w3"].to(x.dtype))
+    elif cfg.mlp_kind == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        h = F.gelu(h, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["w2"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+def moe_spec(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p: dict[str, Any] = {
+        "router": ParamSpec((d, e), ("embed", None), cfg.param_dtype, "small"),
+        "w1": ParamSpec((e, d, f), ("experts", "embed", "expert_ffn"), cfg.param_dtype),
+        "w3": ParamSpec((e, d, f), ("experts", "embed", "expert_ffn"), cfg.param_dtype),
+        "w2": ParamSpec((e, f, d), ("experts", "expert_ffn", "embed"), cfg.param_dtype),
+    }
+    if cfg.num_shared_experts:
+        fs = cfg.d_ff * cfg.num_shared_experts
+        p["shared"] = {
+            "w1": ParamSpec((d, fs), ("embed", "ffn"), cfg.param_dtype),
+            "w3": ParamSpec((d, fs), ("embed", "ffn"), cfg.param_dtype),
+            "w2": ParamSpec((fs, d), ("ffn", "embed"), cfg.param_dtype),
+        }
+    return p
+
+
+def _route(p: Any, xf: torch.Tensor, cfg: ModelConfig):
+    """Router over the last two dims of xf (..., t, d): (gates (..., t, k)
+    renormalised, expert ids (..., t, k), aux loss). Ties go to the lower
+    expert id, as ``jax.lax.top_k``'s do: a stable descending sort."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    logits = torch.einsum("...td,de->...te", xf.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[..., :k], ids[..., :k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    lead = tuple(range(probs.dim() - 1))
+    density = F.one_hot(idx[..., 0], e).float().mean(dim=lead)  # Switch-style balance loss
+    aux = torch.sum(density * probs.mean(dim=lead)) * e * cfg.router_aux_loss
+    return gate, idx, aux
+
+
+def _dispatch(xf: torch.Tensor, idx: torch.Tensor, e: int, capacity: int):
+    """One group's tokens xf (t, d) into an (E, C, d) buffer: the t*k
+    assignments sorted by expert (stable, as ``jnp.argsort`` is: which ones
+    are dropped at capacity depends on it), ranked within their expert, and
+    kept below ``capacity``. Returns (buffer, (order, sorted slot or -1))."""
+    k = idx.shape[-1]
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    rank = (torch.arange(flat_e.numel(), device=xf.device)
+            - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    keep = rank < capacity
+    # kept assignments own distinct slots; dropped ones land on a spare row
+    slot = torch.where(keep, sorted_e * capacity + rank, e * capacity)
+    buf = torch.zeros((e * capacity + 1, xf.shape[-1]), dtype=xf.dtype, device=xf.device)
+    buf.index_copy_(0, slot, xf[order // k])
+    return buf[:-1].view(e, capacity, -1), (order, torch.where(keep, slot, -1))
+
+
+def _combine(eo: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor, meta) -> torch.Tensor:
+    """Each token's kept expert outputs eo (E, C, d) times their gates,
+    summed in the order the reference's scatter-add takes them: by
+    ascending expert id (the sorted order), one rounding a term, in x's
+    dtype. A fixed order, so the card's result does not change run to run."""
+    order, slot = meta
+    t, k = idx.shape
+    flat = eo.reshape(-1, eo.shape[-1])
+    kept = slot >= 0
+    out = torch.where(kept[:, None], flat[slot.clamp(min=0)], 0)
+    contrib = out * gate.reshape(-1)[order][:, None].to(eo.dtype)  # sorted order
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)  # assignment -> sorted slot
+    by_expert = torch.argsort(idx, dim=-1)  # a token's k experts are distinct
+    per_tok = contrib[pos[(torch.arange(t, device=idx.device)[:, None] * k + by_expert)]]
+    y = torch.zeros((t, eo.shape[-1]), dtype=eo.dtype, device=eo.device)
+    for j in range(k):
+        y = y + per_tok[:, j]
+    return y
+
+
+def _experts(p: Any, buf: torch.Tensor) -> torch.Tensor:
+    """The routed experts' swiglu over (..., E, C, d) buffers."""
+    dt_ = buf.dtype
+    h1 = torch.einsum("...ecd,edf->...ecf", buf, p["w1"].to(dt_))
+    h3 = torch.einsum("...ecd,edf->...ecf", buf, p["w3"].to(dt_))
+    return torch.einsum("...ecf,efd->...ecd", F.silu(h1) * h3, p["w2"].to(dt_))
+
+
+def moe_forward(p: Any, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with capacity dropping; returns (out, aux_loss).
+
+    The (B, S) tokens split into ``cfg.moe_groups`` groups when they divide
+    evenly (one group otherwise); routing, capacity, dispatch and combine
+    stay inside a group, as the reference's ``_moe_forward_grouped``.
+    """
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    groups = cfg.moe_groups if cfg.moe_groups > 1 and t % cfg.moe_groups == 0 else 1
+    tg = t // groups
+    xg = x.reshape(groups, tg, d)
+    gate, idx, aux = _route(p, xg, cfg)
+    capacity = int(max(1, math.ceil(tg * k / e * cfg.capacity_factor)))
+    dispatched = [_dispatch(xg[i], idx[i], e, capacity) for i in range(groups)]
+    eo = _experts(p, torch.stack([buf for buf, _ in dispatched]))
+    y = torch.stack([_combine(eo[i], gate[i], idx[i], meta)
+                     for i, (_, meta) in enumerate(dispatched)])
+    if cfg.num_shared_experts:
+        y = y + mlp_forward(p["shared"], xg, cfg.replace(mlp_kind="swiglu"))
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -299,16 +531,32 @@ def ssd_block_decode(
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def embed_spec(cfg: ModelConfig) -> dict:
-    return {
-        "tok": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), cfg.param_dtype,
-                         "normal", 0.02),
-        "unembed": ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"), cfg.param_dtype),
-    }
+    p = {"tok": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), cfg.param_dtype,
+                          "normal", 0.02)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"), cfg.param_dtype)
+    return p
 
 
 def embed_tokens(p: Any, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(cfg.compute_dtype)
+    x = p["tok"][tokens.long()].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        # The reference (repro/models/layers.py:612) multiplies by
+        # np.sqrt(d_model), a float64 numpy scalar, which JAX promotes with a
+        # bf16 array to float32: its residual stream, and every later layer
+        # (weights cast to x's dtype), then run in float32 whatever
+        # compute_dtype says. torch keeps bf16 * float in bf16, so the
+        # promotion is made here, for parity.
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        x = x * float(np.float32(np.sqrt(cfg.d_model)))
+    return x
 
 
-def unembed(p: Any, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,dv->bsv", x, p["unembed"].to(x.dtype))
+def unembed(p: Any, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, p["tok"].to(x.dtype))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, p["unembed"].to(x.dtype))
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits

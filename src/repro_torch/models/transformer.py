@@ -1,19 +1,26 @@
-"""Decoder-only LM of the hybrid family (Hymba), in PyTorch
-(``repro.models.transformer``, the hybrid family only).
+"""Decoder-only LM covering the dense (with the VLM backbone's patch prefix),
+MoE (with MLA), SSM and hybrid families, in PyTorch
+(``repro.models.transformer``).
 
-Structure: embed -> [global layer, SWA segment] x G -> final norm ->
-unembed. ``num_global_layers`` full-attention layers sit between
-contiguous segments of sliding-window layers, and every layer runs its
-attention heads and its SSD heads in parallel on the same input.
+Structure (all families): embed -> [layer stacks] -> final norm -> unembed.
+Families map to stacks as:
 
-The layers are modules (``HybridLM.global_layers`` and ``HybridLM.layers``,
-one ``nn.ModuleList`` each) holding their parameters by the reference's
-names; the functions below take the model as ``params`` and read
-``params["layers"][i]["attn"]["wq"]``, as the reference reads its stacked
-pytree. Caches are nested dicts of stacked tensors with the reference's
-keys and shapes: sliding-window layers keep O(window) ring caches, global
-layers full caches, SSD heads O(1) state. Prefill and decode update the
-cache's tensors in place (no copy of the cache per step) and return it.
+  dense   : ``layers``, one uniform stack of (attn + mlp) layers
+  moe     : ``dense_layers`` (the first ``first_k_dense``), then ``layers``
+            (attn + moe); attention is GQA or MLA (``attn_kind``)
+  ssm     : ``layers`` of mamba2 SSD blocks (attention-free)
+  hybrid  : ``global_layers`` full-attention layers between contiguous
+            segments of sliding-window ``layers``; every layer runs its
+            attention heads and its SSD heads in parallel (Hymba)
+
+The stacks are modules (``LM.layers`` and the others, one ``nn.ModuleList``
+each) holding their parameters by the reference's names; the functions below
+take the model as ``params`` and read ``params["layers"][i]["attn"]["wq"]``,
+as the reference reads its stacked pytree. Caches are nested dicts of
+stacked tensors with the reference's keys and shapes: KV caches for
+attention layers (compressed ``ckv``/``kr`` for MLA), O(window) rings for
+sliding-window layers, O(1) state for SSD blocks. Prefill and decode update
+the cache's tensors in place (no copy of the cache per step) and return it.
 """
 from __future__ import annotations
 
@@ -28,27 +35,30 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import ParamSpec, materialize_leaf
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the decoder-only families
+
+
+def _require_decoder(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not yet ported to repro_torch; "
+            f"the port runs {FAMILIES}")
+
 
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
-# The transformer details the port runs: Hymba's. Other values of these
-# knobs belong to architectures not yet ported.
-HYMBA_DETAILS = dict(mlp_kind="swiglu", norm_type="rmsnorm", qk_norm=False,
-                     embed_scale=False, tie_embeddings=False, logit_softcap=None,
-                     frontend=None)
+def _attn_layer_spec(cfg: ModelConfig, mlp: str, d_ff: int | None = None) -> dict:
+    return {
+        "norm1": L.norm_spec(cfg),
+        "norm2": L.norm_spec(cfg),
+        "attn": L.mla_spec(cfg) if cfg.attn_kind == "mla" else L.attention_spec(cfg),
+        "mlp": L.moe_spec(cfg) if mlp == "moe" else L.mlp_spec(cfg, d_ff),
+    }
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not yet ported to repro_torch; "
-            "the port runs the hybrid family")
-    other = {k: getattr(cfg, k) for k, v in HYMBA_DETAILS.items() if getattr(cfg, k) != v}
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {other} are not yet ported to repro_torch; the port runs "
-            f"Hymba's {HYMBA_DETAILS}")
+def _ssm_layer_spec(cfg: ModelConfig) -> dict:
+    return {"norm1": L.norm_spec(cfg), "ssd": L.ssd_spec(cfg)}
 
 
 def _hybrid_layer_spec(cfg: ModelConfig) -> dict:
@@ -61,6 +71,29 @@ def _hybrid_layer_spec(cfg: ModelConfig) -> dict:
     }
 
 
+def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
+    n_glob = cfg.num_global_layers
+    return n_glob, cfg.num_layers - n_glob
+
+
+def _stacks(cfg: ModelConfig) -> list[tuple[str, int, dict]]:
+    """(stack name, layers, one layer's spec) in the reference's order."""
+    _require_decoder(cfg)
+    if cfg.family == "ssm":
+        return [("layers", cfg.num_layers, _ssm_layer_spec(cfg))]
+    if cfg.family == "hybrid":
+        n_glob, n_swa = _hybrid_split(cfg)
+        glob = [("global_layers", n_glob, _hybrid_layer_spec(cfg))] if n_glob else []
+        return glob + [("layers", n_swa, _hybrid_layer_spec(cfg))]
+    if cfg.family == "moe":
+        dense = ([("dense_layers", cfg.first_k_dense,
+                   _attn_layer_spec(cfg, "dense", cfg.dense_d_ff or cfg.d_ff))]
+                 if cfg.first_k_dense else [])
+        return dense + [("layers", cfg.num_layers - cfg.first_k_dense,
+                         _attn_layer_spec(cfg, "moe"))]
+    return [("layers", cfg.num_layers, _attn_layer_spec(cfg, "dense"))]
+
+
 def _stack(tree: Any, n: int) -> Any:
     if isinstance(tree, ParamSpec):
         return ParamSpec((n,) + tree.shape, ("layers",) + tree.axes, tree.dtype, tree.init,
@@ -68,19 +101,11 @@ def _stack(tree: Any, n: int) -> Any:
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
-def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
-    n_glob = cfg.num_global_layers
-    return n_glob, cfg.num_layers - n_glob
-
-
 def abstract_params(cfg: ModelConfig) -> dict:
     """The reference's spec tree: layer stacks as ``(L, ...)`` leaves."""
-    _require_hybrid(cfg)
     p: dict[str, Any] = {"embed": L.embed_spec(cfg), "final_norm": L.norm_spec(cfg)}
-    n_glob, n_swa = _hybrid_split(cfg)
-    if n_glob:
-        p["global_layers"] = _stack(_hybrid_layer_spec(cfg), n_glob)
-    p["layers"] = _stack(_hybrid_layer_spec(cfg), n_swa)
+    for name, n, spec in _stacks(cfg):
+        p[name] = _stack(spec, n)
     return p
 
 
@@ -88,34 +113,26 @@ def abstract_params(cfg: ModelConfig) -> dict:
 # Modules
 # ---------------------------------------------------------------------------
 class ParamGroup(nn.Module):
-    """Parameters built from a flat ``{name: ParamSpec}`` dict; ``p[name]``
-    reads one. Inference only: no parameter requires a gradient."""
+    """Parameters built from a nested ``{name: ParamSpec or dict}``; ``p[name]``
+    reads a parameter or a nested group. Inference only: no parameter
+    requires a gradient."""
 
     def __init__(self, specs: dict, device: torch.device, generator: torch.Generator | None):
         super().__init__()
         for name, spec in specs.items():
-            self.register_parameter(name, nn.Parameter(
-                materialize_leaf(spec, generator, device), requires_grad=False))
+            if isinstance(spec, ParamSpec):
+                self.register_parameter(name, nn.Parameter(
+                    materialize_leaf(spec, generator, device), requires_grad=False))
+            else:
+                self.add_module(name, ParamGroup(spec, device, generator))
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def __getitem__(self, name: str):
         return getattr(self, name)
 
 
-class HybridLayer(nn.Module):
-    """One Hymba layer's parameters: norm1, norm2, attn, ssd, mlp."""
-
-    def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: torch.Generator | None):
-        super().__init__()
-        for name, specs in _hybrid_layer_spec(cfg).items():
-            self.add_module(name, ParamGroup(specs, device, generator))
-
-    def __getitem__(self, name: str) -> ParamGroup:
-        return getattr(self, name)
-
-
-class HybridLM(nn.Module):
-    """The hybrid-family LM with randomly initialized weights.
+class LM(nn.Module):
+    """A decoder-only LM of any ported family, with randomly initialized
+    weights.
 
     ``device=None`` means the CUDA card and raises without one; pass
     ``device="cpu"`` for the CPU or ``"meta"`` to allocate nothing. The
@@ -125,26 +142,55 @@ class HybridLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        _require_hybrid(cfg)
+        stacks = _stacks(cfg)
         dev = resolve_device(device)
         gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         self.embed = ParamGroup(L.embed_spec(cfg), dev, gen)
         self.final_norm = ParamGroup(L.norm_spec(cfg), dev, gen)
-        n_glob, n_swa = _hybrid_split(cfg)
-        self.global_layers = nn.ModuleList(HybridLayer(cfg, dev, gen) for _ in range(n_glob))
-        self.layers = nn.ModuleList(HybridLayer(cfg, dev, gen) for _ in range(n_swa))
+        for name, n, spec in stacks:
+            self.add_module(name, nn.ModuleList(ParamGroup(spec, dev, gen) for _ in range(n)))
 
     def __getitem__(self, name: str) -> nn.Module:
         return getattr(self, name)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self, tokens, self.cfg)[0]
+    def forward(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None):
+        return forward(self, tokens, self.cfg, prefix_embeds=prefix_embeds)[0]
+
+
+HybridLM = LM  # the name of the first slice, which ported the hybrid family
 
 
 # ---------------------------------------------------------------------------
-# Layer body
+# Layer bodies
 # ---------------------------------------------------------------------------
+def _attn_mlp_layer(lp: Any, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
+                    moe: bool, window: int | None, kv_cache=None, cache_pos=None):
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    if cfg.attn_kind == "mla":
+        attn_out, new_cache = L.mla_forward(lp["attn"], h, cfg, positions, kv_cache=kv_cache,
+                                            cache_pos=cache_pos)
+    else:
+        attn_out, new_cache = L.attention_forward(lp["attn"], h, cfg, positions, window=window,
+                                                  kv_cache=kv_cache, cache_pos=cache_pos)
+    x = x + attn_out
+    h2 = L.apply_norm(lp["norm2"], x, cfg)
+    if moe:
+        mlp_out, aux = L.moe_forward(lp["mlp"], h2, cfg)
+    else:
+        mlp_out, aux = L.mlp_forward(lp["mlp"], h2, cfg), None
+    return x + mlp_out, aux, new_cache
+
+
+def _ssm_layer(lp: Any, x: torch.Tensor, cfg: ModelConfig, *, state=None, decode=False):
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    if decode:
+        out, new_state = L.ssd_block_decode(lp["ssd"], h, cfg, state)
+    else:
+        out, new_state = L.ssd_block_forward(lp["ssd"], h, cfg, state=state)
+    return x + out, new_state
+
+
 def _hybrid_layer(
     lp: Any,
     x: torch.Tensor,
@@ -158,7 +204,7 @@ def _hybrid_layer(
     decode=False,
 ):
     """Hymba: attention heads and SSD heads in parallel on the same input."""
-    h = L.rms_norm(x, lp["norm1"]["w"])
+    h = L.apply_norm(lp["norm1"], x, cfg)
     attn_out, new_kv = L.attention_forward(
         lp["attn"], h, cfg, positions, window=window, kv_cache=kv_cache, cache_pos=cache_pos
     )
@@ -167,7 +213,7 @@ def _hybrid_layer(
     else:
         ssd_out, new_state = L.ssd_block_forward(lp["ssd"], h, cfg, state=ssm_state)
     x = x + 0.5 * (attn_out + ssd_out)
-    x = x + L.mlp_forward(lp["mlp"], L.rms_norm(x, lp["norm2"]["w"]))
+    x = x + L.mlp_forward(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg), cfg)
     return x, new_kv, new_state
 
 
@@ -181,6 +227,21 @@ def _segments(n: int, g: int) -> list[tuple[int, int]]:
     return [(int(bounds[i]), int(bounds[i + 1])) for i in range(g)]
 
 
+def _embed(params: Any, tokens: torch.Tensor, cfg: ModelConfig,
+           prefix_embeds: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings, behind the modality prefix (B, P, d) if given."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
+    return x
+
+
+def _attn_stacks(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(stack name, whether its layers are MoE) of the dense and moe families."""
+    moe = cfg.family == "moe"
+    return ([("dense_layers", False)] if moe and cfg.first_k_dense else []) + [("layers", moe)]
+
+
 # ---------------------------------------------------------------------------
 # Forward (scoring): full sequence, no cache
 # ---------------------------------------------------------------------------
@@ -188,15 +249,28 @@ def forward(
     params: Any,
     tokens: torch.Tensor,  # (B, S) int
     cfg: ModelConfig,
+    *,
+    prefix_embeds: torch.Tensor | None = None,  # (B, P, d) modality stub
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, vocab), aux_loss)."""
-    _require_hybrid(cfg)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    """Returns (logits (B, S', vocab), aux_loss). S' = P + S with a prefix."""
+    _require_decoder(cfg)
+    x = _embed(params, tokens, cfg, prefix_embeds)
     b, s, _ = x.shape
-    x = _hybrid_forward_nocache(params, x, cfg, _positions(b, s, x.device))
-    x = L.rms_norm(x, params["final_norm"]["w"])
-    logits = L.unembed(params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    positions = _positions(b, s, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            x, _ = _ssm_layer(lp, x, cfg)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward_nocache(params, x, cfg, positions)
+    else:
+        for stack, moe in _attn_stacks(cfg):
+            for lp in params[stack]:
+                x, aux, _ = _attn_mlp_layer(lp, x, cfg, positions, moe=moe, window=cfg.window)
+                if moe:  # the reference sums the routed layers' losses only
+                    aux_total = aux_total + aux
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg), aux_total
 
 
 def _hybrid_forward_nocache(params, x, cfg, positions):
@@ -214,44 +288,81 @@ def _hybrid_forward_nocache(params, x, cfg, positions):
 # KV / state caches
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None) -> dict:
-    """Zeroed cache for decode. ``max_len`` is the KV capacity of the global
-    layers; SWA layers allocate only ``cfg.window``; SSD heads O(1) state.
+    """Zeroed cache for decode. ``max_len`` is the KV capacity of the
+    full-attention layers; SWA layers allocate only ``cfg.window``; SSD
+    blocks O(1) state; MLA layers the compressed c_kv and k_rope.
     ``device=None`` means the CUDA card."""
-    _require_hybrid(cfg)
+    _require_decoder(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
 
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     def kv_cache(n_layers: int, length: int) -> dict:
-        shape = (n_layers, batch, kv, length, hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"k": zeros(n_layers, batch, kv, length, hd),
+                "v": zeros(n_layers, batch, kv, length, hd)}
 
     def ssm_state(n_layers: int) -> dict:
         conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        return {
-            "conv": torch.zeros((n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
-                                device=dev),
-            "ssm": torch.zeros((n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
-                                cfg.ssm_headdim), dtype=torch.float32, device=dev),
-        }
+        return {"conv": zeros(n_layers, batch, cfg.ssm_conv - 1, conv_dim),
+                "ssm": zeros(n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim,
+                             dt=torch.float32)}
 
-    n_glob, n_swa = _hybrid_split(cfg)
-    ring = min(cfg.window or max_len, max_len)
-    cache: dict[str, Any] = {
-        "swa": kv_cache(n_swa, ring),
-        "swa_ssm": ssm_state(n_swa),
-        "slotpos": torch.full((ring,), -1, dtype=torch.int32, device=dev),
-    }
-    if n_glob:
-        cache["global"] = kv_cache(n_glob, max_len)
-        cache["global_ssm"] = ssm_state(n_glob)
+    def mla_cache(n_layers: int) -> dict:
+        return {"ckv": zeros(n_layers, batch, max_len, cfg.kv_lora_rank),
+                "kr": zeros(n_layers, batch, max_len, cfg.qk_rope_dim)}
+
+    if cfg.family == "ssm":
+        return {"ssm": ssm_state(cfg.num_layers)}
+    if cfg.family == "hybrid":
+        n_glob, n_swa = _hybrid_split(cfg)
+        ring = min(cfg.window or max_len, max_len)
+        cache: dict[str, Any] = {
+            "swa": kv_cache(n_swa, ring),
+            "swa_ssm": ssm_state(n_swa),
+            "slotpos": torch.full((ring,), -1, dtype=torch.int32, device=dev),
+        }
+        if n_glob:
+            cache["global"] = kv_cache(n_glob, max_len)
+            cache["global_ssm"] = ssm_state(n_glob)
+        return cache
+    make = mla_cache if cfg.attn_kind == "mla" else (lambda n: kv_cache(n, max_len))
+    cache = {"layers": make(cfg.num_layers - cfg.first_k_dense)}
+    if cfg.first_k_dense:
+        cache["dense_layers"] = make(cfg.first_k_dense)
     return cache
 
 
 def _store_state(cache_ssm: dict, i: int, state: L.SSMState) -> None:
     cache_ssm["conv"][i] = state.conv
     cache_ssm["ssm"][i] = state.ssm
+
+
+def _layer_cache(c: dict, i: int, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer i's views of a stacked KV (or MLA) cache: written in place."""
+    if cfg.attn_kind == "mla":
+        return c["ckv"][i], c["kr"][i]
+    return c["k"][i], c["v"][i]
+
+
+def _attn_stacks_cached(params, x, cfg, positions, cache, pos: int):
+    """The dense and moe families' layers against their caches, from
+    position ``pos`` (0 for prefill)."""
+    for stack, moe in _attn_stacks(cfg):
+        for i, lp in enumerate(params[stack]):
+            x, _, _ = _attn_mlp_layer(lp, x, cfg, positions, moe=moe, window=cfg.window,
+                                      kv_cache=_layer_cache(cache[stack], i, cfg), cache_pos=pos)
+    return x
+
+
+def _ssm_stack_cached(params, x, cfg, cache, decode: bool):
+    for i, lp in enumerate(params["layers"]):
+        st = L.SSMState(conv=cache["ssm"]["conv"][i], ssm=cache["ssm"]["ssm"][i])
+        x, new_state = _ssm_layer(lp, x, cfg, state=st, decode=decode)
+        _store_state(cache["ssm"], i, new_state)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -262,14 +373,22 @@ def prefill(
     tokens: torch.Tensor,  # (B, S)
     cfg: ModelConfig,
     cache: dict,
+    *,
+    prefix_embeds: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Returns (logits of the last position (B, 1, vocab), the cache)."""
-    _require_hybrid(cfg)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    _require_decoder(cfg)
+    x = _embed(params, tokens, cfg, prefix_embeds)
     b, s, _ = x.shape
-    x, cache = _hybrid_prefill(params, x, cfg, _positions(b, s, x.device), cache)
-    x = L.rms_norm(x, params["final_norm"]["w"])
-    return L.unembed(params["embed"], x[:, -1:]), cache
+    positions = _positions(b, s, x.device)
+    if cfg.family == "ssm":
+        x = _ssm_stack_cached(params, x, cfg, cache, decode=False)
+    elif cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(params, x, cfg, positions, cache)
+    else:
+        x = _attn_stacks_cached(params, x, cfg, positions, cache, 0)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x[:, -1:], cfg), cache
 
 
 def _hybrid_prefill(params, x, cfg, positions, cache):
@@ -323,13 +442,18 @@ def decode_step(
     pos: int,  # index of the new token
 ) -> tuple[torch.Tensor, dict]:
     """Returns (logits (B, 1, vocab), the cache updated in place)."""
-    _require_hybrid(cfg)
+    _require_decoder(cfg)
     pos = int(pos)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = _positions(x.shape[0], 1, x.device, start=pos)
-    x, cache = _hybrid_decode(params, x, cfg, positions, cache, pos)
-    x = L.rms_norm(x, params["final_norm"]["w"])
-    return L.unembed(params["embed"], x), cache
+    if cfg.family == "ssm":
+        x = _ssm_stack_cached(params, x, cfg, cache, decode=True)
+    elif cfg.family == "hybrid":
+        x, cache = _hybrid_decode(params, x, cfg, positions, cache, pos)
+    else:
+        x = _attn_stacks_cached(params, x, cfg, positions, cache, pos)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg), cache
 
 
 def _ring_attention_decode(lp, h, cfg, positions, ring_k, ring_v, slotpos, pos: int):
@@ -361,7 +485,7 @@ def _hybrid_decode(params, x, cfg, positions, cache, pos: int):
             _store_state(cache["global_ssm"], gi, new_state)
         for li in range(lo, hi):
             lp = params["layers"][li]
-            h = L.rms_norm(x, lp["norm1"]["w"])
+            h = L.apply_norm(lp["norm1"], x, cfg)
             attn_out = _ring_attention_decode(
                 lp, h, cfg, positions, cache["swa"]["k"][li], cache["swa"]["v"][li],
                 cache["slotpos"], pos)
@@ -370,5 +494,5 @@ def _hybrid_decode(params, x, cfg, positions, cache, pos: int):
                 L.SSMState(conv=cache["swa_ssm"]["conv"][li], ssm=cache["swa_ssm"]["ssm"][li]))
             _store_state(cache["swa_ssm"], li, new_state)
             x = x + 0.5 * (attn_out + ssd_out)
-            x = x + L.mlp_forward(lp["mlp"], L.rms_norm(x, lp["norm2"]["w"]))
+            x = x + L.mlp_forward(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg), cfg)
     return x, cache

@@ -20,7 +20,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> di
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill(params, batch, cache):
-        return transformer.prefill(params, batch["tokens"], cfg, cache)
+        prefix = batch.get("prefix") if cfg.frontend else None
+        return transformer.prefill(params, batch["tokens"], cfg, cache, prefix_embeds=prefix)
 
     return prefill
 
@@ -53,6 +54,7 @@ def generate(
     max_new: int = 16,
     max_len: int | None = None,
     temperature: float = 0.0,
+    prefix=None,  # (B, frontend_len, d_model) modality embeddings: a tensor or an array
     device=None,
     stats: dict | None = None,
 ) -> torch.Tensor:
@@ -60,15 +62,28 @@ def generate(
 
     Runs on ``device`` (``None``: the CUDA card; raises without one), where
     ``params`` (the model) must already be. Returns (B, S0 + max_new) int32
-    tokens. If ``stats`` is given, it receives ``prefill_s`` and ``decode_s``,
-    host times around work that ends in a device synchronisation.
+    tokens. With a ``prefix`` (a config with a ``frontend``), the prefix sits
+    before the prompt in the context: decode positions start at
+    S0 + frontend_len, and the default cache holds S0 + frontend_len +
+    max_new + 1 positions (the reference's default leaves out the prefix, so
+    its prefill does not fit; pass ``max_len`` to compare). If ``stats`` is
+    given, it receives ``prefill_s`` and ``decode_s``, host times around
+    work that ends in a device synchronisation.
     """
     dev = resolve_device(device)
     if not _same_device(_model_device(params), dev):
         raise ValueError(f"the model is on {_model_device(params)}, generate runs on {dev}")
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
     b, s0 = prompt.shape
-    max_len = max_len or (s0 + max_new + 1)
+    batch = {"tokens": prompt}
+    pos_offset = 0
+    if prefix is not None and cfg.frontend:
+        batch["prefix"] = torch.as_tensor(prefix, device=dev)
+        if tuple(batch["prefix"].shape) != (b, cfg.frontend_len, cfg.d_model):
+            raise ValueError(f"prefix of shape {tuple(batch['prefix'].shape)}; {cfg.name} "
+                             f"takes ({b}, {cfg.frontend_len}, {cfg.d_model})")
+        pos_offset = cfg.frontend_len
+    max_len = max_len or (s0 + pos_offset + max_new + 1)
 
     def clock() -> float:
         if stats is not None and dev.type == "cuda":
@@ -79,13 +94,13 @@ def generate(
     cache = make_cache(cfg, b, max_len, device=dev)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
-    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    logits, cache = prefill(params, batch, cache)
     out = [prompt]
     tok = _sample(logits[:, -1], temperature)
     t1 = clock()
     for i in range(max_new):
         out.append(tok)
-        logits, cache = decode(params, tok, cache, s0 + i)
+        logits, cache = decode(params, tok, cache, s0 + pos_offset + i)
         tok = _sample(logits[:, -1], temperature)
     t2 = clock()
     if stats is not None:

@@ -394,6 +394,11 @@ def test_analyze_tile_cuda_matches_plain(dev):
         (1, 4, 2, 70, 130, 128, True, 50, 60),  # query offset, ragged Tk
         (1, 2, 1, 33, 77, 64, False, 20, 0),  # window without the causal mask
         (1, 2, 2, 4, 8, 16, True, None, -3),  # rows with no visible key
+        (1, 8, 1, 300, 300, 256, True, None, 0),  # gemma-2b's MQA, ragged tiles
+        (1, 2, 1, 33, 77, 256, False, 20, 0),  # D = 256, window without the causal mask
+        (2, 16, 16, 256, 256, 192, True, None, 0),  # MLA's scoring head_dim
+        (1, 4, 4, 70, 130, 192, True, 50, 60),  # D = 192, query offset, ragged Tk
+        (1, 2, 2, 4, 8, 192, True, None, -3),  # D = 192, rows with no visible key
     ],
 )
 def test_flash_attention_cuda_matches_plain(dev, dtype, tol, b, hq, hkv, tq, tk, d, causal,
@@ -467,7 +472,9 @@ def test_flash_attention_cuda_refuses_what_it_does_not_take(dev):
     [(2, 64, 4, 16, 2, 8, 16), (1, 32, 2, 8, 1, 4, 8), (1, 128, 8, 32, 1, 16, 32),
      (2, 40, 4, 16, 2, 8, 16),  # ragged: T no multiple of the chunk
      (2, 300, 50, 64, 1, 16, 128),  # Hymba's heads, ragged last chunk
-     (1, 1, 2, 8, 1, 4, 128)],
+     (1, 1, 2, 8, 1, 4, 128),
+     (1, 300, 4, 64, 1, 128, 128),  # mamba2's N = 128, a ragged last chunk
+     (2, 2048, 80, 64, 1, 128, 128)],  # mamba2-2.7b's full prefill shape
 )
 def test_ssd_scan_cuda_matches_plain(dev, dtype, tol, b, t, h, p, g, n, chunk):
     gen = torch.Generator(device=dev).manual_seed(t * h + p)
@@ -580,6 +587,26 @@ def test_hybrid_generate_cuda_matches_plain(dev):
     assert flash_attention.launches == before[0] + 3 and ssd_scan.launches == before[2] + 3
     assert flash_attention.swa_launches == before[1] + 2  # the two SWA layers
     want = generate(model, cfg.replace(attn_impl="torch"), prompt, max_new=8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma-2b", "mamba2-2.7b",
+                                  "deepseek-v2-lite-16b", "internvl2-1b"])
+def test_family_generate_cuda_matches_plain(dev, arch):
+    """Each decoder-only family, scaled down in float32, generates the same
+    greedy tokens on the kernels as on the plain versions, prefix and all."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(arch).scaled_down()
+    model = LM(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (2, 21)).astype(np.int32)
+    prefix = None
+    if cfg.frontend:
+        prefix = (rng.standard_normal((2, cfg.frontend_len, cfg.d_model)) * 0.1).astype(np.float32)
+    got = generate(model, cfg, prompt, max_new=8, prefix=prefix)
+    want = generate(model, cfg.replace(attn_impl="torch"), prompt, max_new=8, prefix=prefix)
     assert torch.equal(got, want)
 
 

@@ -24,6 +24,10 @@ RUNTIME_SLICE = (
     "repro_torch.runtime.scheduler", "repro_torch.runtime.manager",
     "repro_torch.runtime.prefetch", "repro_torch.pipeline.wsi",
 )
+# the decoder-only families: their configs (the models' modules are listed below)
+FAMILIES_SLICE = tuple(f"repro_torch.configs.{m}" for m in (
+    "qwen3_0_6b", "gemma_2b", "granite_20b", "internvl2_1b", "nemotron_4_340b",
+    "deepseek_v2_lite_16b", "qwen3_moe_235b_a22b", "mamba2_2_7b", "seamless_m4t_large_v2"))
 # the near-data chains and the serving tier, with the storage modules it needs
 SERVING_SLICE = (
     "repro_torch.kernels.chains", "repro_torch.serve.fair", "repro_torch.serve.rcache",
@@ -52,7 +56,7 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                 "repro_torch.models.registry", "repro_torch.configs.registry",
                 "repro_torch.configs.hymba_1_5b", "repro_torch.serve.step",
                 "repro_torch.launch.serve", "repro_torch.convert", *RUNTIME_SLICE,
-                *SERVING_SLICE):
+                *SERVING_SLICE, *FAMILIES_SLICE):
         assert new in mods, new
     code = (
         "import importlib, sys\n"

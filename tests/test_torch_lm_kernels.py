@@ -38,6 +38,8 @@ def _bf16(a):
         (2, 4, 4, 1, 96, 32, True, None, 95, 1, 32),
         (1, 2, 2, 48, 48, 64, False, None, 0, 16, 24),
         (1, 4, 2, 40, 40, 24, True, None, 0, 16, 16),  # ragged blocks
+        (1, 4, 1, 48, 48, 256, True, None, 0, 16, 16),  # gemma-2b's head_dim, MQA
+        (1, 2, 2, 40, 40, 192, True, None, 0, 16, 8),  # MLA's scoring head_dim, ragged
     ],
 )
 def test_attention_matches_reference_and_pallas(b, hq, hkv, tq, tk, d, causal, window, qoff,
@@ -156,12 +158,14 @@ def test_ssd_shared_memory_at_the_path_shape():
     [(torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
      (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 24, "cuda_core"),
      (torch.bfloat16, 32, "cuda_core"), (torch.float32, 64, "cuda_core"),
-     (torch.float32, 128, "cuda_core"), (torch.float32, 16, "cuda_core")],
+     (torch.float32, 128, "cuda_core"), (torch.float32, 16, "cuda_core"),
+     (torch.bfloat16, 192, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
+     (torch.float32, 256, "cuda_core")],
 )
 def test_attention_instance_routing(dtype, d, want):
     """bf16 at D = 64 and 128 takes the tensor-core kernel; float32 (held at
-    3e-4, which TF32 would not hold) and the small head dims keep the CUDA
-    cores."""
+    3e-4, which TF32 would not hold), the small head dims and D = 192, 256
+    keep the CUDA cores."""
     assert instance(dtype, d) == want
 
 

@@ -161,26 +161,48 @@ def test_full_hymba_param_count_and_shapes_match_reference():
 
 def test_other_families_and_archs_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("qwen3-0.6b")
+        get_config("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        HybridLM(ModelConfig(family="dense"), device="meta")
+        HybridLM(ModelConfig(family="encdec"), device="meta")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.abstract_params(ModelConfig(family="encdec"))
 
 
 @pytest.mark.parametrize("knob", [
     dict(mlp_kind="geglu"), dict(mlp_kind="relu2"), dict(mlp_kind="gelu"),
     dict(norm_type="layernorm"), dict(qk_norm=True), dict(embed_scale=True),
-    dict(tie_embeddings=True), dict(logit_softcap=30.0), dict(frontend="patch"),
+    dict(tie_embeddings=True), dict(logit_softcap=30.0), dict(frontend="patch", frontend_len=4),
 ])
-def test_transformer_details_other_than_hymbas_raise(knob):
-    """Only Hymba's transformer details are ported; another value of a knob
-    raises instead of running code nothing holds against the reference."""
-    cfg = CONFIGS["hybrid"][1].replace(**knob)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        HybridLM(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.abstract_params(cfg)
+def test_transformer_details_match_reference(knob):
+    """Each transformer detail other than Hymba's, turned on in the hybrid
+    config: forward logits, and prefill logits with every cache leaf, equal
+    the reference's (with the patch prefix in front of the tokens when the
+    frontend is on)."""
+    jcfg0, tcfg0 = CONFIGS["hybrid"]
+    jcfg, tcfg = jcfg0.replace(**knob), tcfg0.replace(**knob)
+    jparams = jspec.materialize(jax.random.key(4), jregistry.abstract_params(jcfg))
+    model = convert.lm_params_from_reference(jax.tree_util.tree_map(np.asarray, jparams), tcfg,
+                                             device="cpu")
+    b, s = 2, 12
+    toks = _tokens(tcfg, b, s, seed=4)
+    pre = None
+    if tcfg.frontend:
+        pre = np.random.default_rng(4).standard_normal(
+            (b, tcfg.frontend_len, tcfg.d_model)).astype(np.float32)
+    jpre = None if pre is None else jnp.asarray(pre)
+    tpre = None if pre is None else torch.from_numpy(pre)
+    want, _ = j_forward(jparams, jnp.asarray(toks), jcfg, prefix_embeds=jpre)
+    got, _ = T.forward(model, torch.from_numpy(toks), tcfg, prefix_embeds=tpre)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    max_len = s + tcfg.frontend_len + 4
+    want, jcache = j_prefill(jparams, jnp.asarray(toks), jcfg, JT.init_cache(jcfg, b, max_len),
+                             prefix_embeds=jpre)
+    got, cache = T.prefill(model, torch.from_numpy(toks), tcfg,
+                           T.init_cache(tcfg, b, max_len, device="cpu"), prefix_embeds=tpre)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    _assert_cache_equal(cache, jcache)
 
 
 def test_bf16_parameters_cross_through_their_bits():

@@ -101,10 +101,10 @@ def test_chunked_strong_decay_stays_finite():
 
 
 def test_bf16_rounding_budget_at_hymbas_head_shape():
-    """P = 64, N = 16, chunk 128, bf16 inputs, the scaled C B^T rounded to
-    bf16 before the product with x, as the tensor-core instance rounds it:
-    y within bf16's 3e-2 of the float32 recurrence, the state within 3e-4
-    (phase 1 keeps it in float32)."""
+    """P = 64, N = 16, chunk 128, bf16 inputs, the scaled C B^T split into
+    two bf16 parts before the product with x, as the tensor-core instance
+    splits it: y within bf16's 3e-2 of the float32 recurrence, the state
+    within 3e-4 (phase 1 keeps it in float32)."""
     x, dt, a, bm, cm, d = _inputs(1, 256, 4, 64, 1, 16, seed=64)
     xb, bb, cb = (_t(v).to(torch.bfloat16) for v in (x, bm, cm))
     y, hf = ref.ssd_scan_chunked(xb, _t(dt), _t(a), bb, cb, _t(d), chunk=128,
@@ -115,7 +115,8 @@ def test_bf16_rounding_budget_at_hymbas_head_shape():
     h_err = float((hf - hr).abs().max())
     assert torch.allclose(y.float(), yr, rtol=BF16_TOL, atol=BF16_TOL), f"y max |err| {y_err}"
     assert torch.allclose(hf, hr, rtol=TOL, atol=TOL), f"state max |err| {h_err}"
-    # the rounding is there: without it the chunked y is closer still
+    # the rounding is there (the split's, and y's own in bf16): without it
+    # the chunked y is closer still
     y32, _ = ref.ssd_scan_chunked(xb.float(), _t(dt), _t(a), bb.float(), cb.float(), _t(d),
                                   chunk=128)
     assert float((y32 - yr).abs().max()) < y_err, f"y max |err| {y_err} with bf16 rounding"
@@ -139,13 +140,46 @@ def test_ssd_instance_routing(dtype, n, p, want):
 
 def test_ssd_phase_shared_memory_at_the_path_shape():
     """chunk 128, P 64, N 16: every phase fits a block in both dtypes, the
-    bf16 tensor-core scan in 35,840 bytes (several blocks an SM); at chunk
-    256 the float32 CUDA-core scan's (Lp, Lp) tile does not fit."""
+    bf16 tensor-core scan in 35,840 bytes (several blocks an SM); the
+    float32 CUDA-core scan keeps the state in B^T's room once G is made; at
+    chunk 256 its (Lp, Lp) tile does not fit."""
     bf16 = ssd_mod.smem_bytes(128, 64, 16, torch.bfloat16)
     f32 = ssd_mod.smem_bytes(128, 64, 16, torch.float32)
     assert bf16 == {"chunk_state": 29_824, "chunk_scan": 35_840}
-    assert f32 == {"chunk_state": 50_304, "chunk_scan": 119_808}
+    assert f32 == {"chunk_state": 50_304, "chunk_scan": 115_712}
     assert max(f32.values()) <= ssd_mod.MAX_SHARED_BYTES
     assert ssd_mod.smem_bytes(256, 64, 16)["chunk_scan"] > ssd_mod.MAX_SHARED_BYTES
     # a ragged chunk is padded to 16 rows
     assert ssd_mod.smem_bytes(40, 64, 16) == ssd_mod.smem_bytes(48, 64, 16)
+
+
+def test_ssd_phase_shared_memory_at_mamba2s_state_size():
+    """mamba2-2.7b: chunk 128, P 64, N 128. The bf16 tensor-core phases fit at
+    one block an SM; the float32 CUDA-core scan fits only because the state
+    shares B^T's room (263,168 bytes in separate rooms)."""
+    bf16 = ssd_mod.smem_bytes(128, 64, 128, torch.bfloat16)
+    f32 = ssd_mod.smem_bytes(128, 64, 128, torch.float32)
+    assert bf16 == {"chunk_state": 115_840, "chunk_scan": 121_856}
+    assert f32 == {"chunk_state": 164_992, "chunk_scan": 230_400}
+    assert max(f32.values()) <= ssd_mod.MAX_SHARED_BYTES < 263_168
+
+
+@pytest.mark.parametrize("t", [256, 200])
+def test_chunked_at_mamba2s_state_size_matches_jax(t):
+    """N = 128, P = 64, chunk 128 (mamba2-2.7b's head), a whole and a ragged
+    last chunk: against the sequential recurrence and, where T is whole
+    chunks (as the JAX package's take), the JAX package's chunked reference
+    and its Pallas kernel in interpret mode."""
+    args = _inputs(1, t, 2, 64, 1, 128, seed=t)
+    y, hf = ref.ssd_scan_chunked(*map(_t, args), chunk=128)
+    yr, hr = ref.ssd_scan_ref(*map(_t, args))
+    torch.testing.assert_close(y, yr, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(hf, hr, rtol=TOL, atol=TOL)
+    if t % 128 == 0:
+        jargs = [jnp.asarray(a) for a in args]
+        yj, hj = jref.ssd_scan_chunked_ref(*jargs, chunk=128)
+        np.testing.assert_allclose(y.numpy(), yj, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(hf.numpy(), hj, rtol=TOL, atol=TOL)
+        yp, hp = ssd_scan_pallas(*jargs, chunk=128, interpret=True)
+        np.testing.assert_allclose(y.numpy(), yp, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(hf.numpy(), hp, rtol=TOL, atol=TOL)
