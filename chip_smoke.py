@@ -57,7 +57,20 @@ Phases, each fatal on failure:
      hold six models end to end in float32 at full width, 2 layers deep,
      kernels against plain versions; print the meta-device parameter counts
      of the two models too large for one card;
-  8. print the per-kernel JSON lines, the ``kernels`` line and, last, the
+  8. the encoder-decoder family: hold attention against its plain version
+     at seamless-m4t-large-v2's encoder shape (not causal) and its decoder
+     prefill's (causal), time both beside SDPA, serve seamless at full width
+     and depth in bf16 through ``serve.generate`` (2048 frames, 2 x 2048
+     prompt tokens, 32 new tokens) with the counters set to 0 just before and
+     read just after (48 tensor-core launches, 24 not causal), time its
+     encoder, and hold it end to end in float32 at full width, 2 + 2 layers;
+  9. training: ``launch.train.main`` for qwen3-0.6b at full width and depth
+     in bf16, 20 steps of 2 x 2048 tokens with an async checkpoint at step
+     10 and a final save (the loss must fall; no kernel may launch: training
+     runs the plain attention), the saved state restored leaf for leaf bit
+     for bit, a ``--restore`` run to step 30, and one float32 train step at
+     full width, 2 layers, on the card against the CPU;
+  10. print the per-kernel JSON lines, the ``kernels`` line and, last, the
      ``{"ok": true, "device": ...}`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -73,6 +86,7 @@ from functools import partial
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores, and
@@ -136,6 +150,30 @@ FAMILY_ROWS = {"flash_attention:qwen3": "flash_attention:bf16:qwen3",
                "flash_attention:gemma": "flash_attention:f32:gemma",
                "flash_attention:mla": "flash_attention:bf16:mla",
                "ssd_scan:mamba2": "ssd_scan:bf16:mamba2"}
+# Phase 8, the encoder-decoder family: seamless-m4t-large-v2 served at full
+# width and depth in bf16 through serve.generate, one batch of two
+# 2048-token prompts behind 2048 encoder frames (x 0.1, as the reference's
+# launch.serve scales them) and 32 greedy new tokens; a prefill launches the
+# tensor-core attention once an encoder layer (not causal) and once a decoder
+# layer (causal); the float32 check cuts both stacks to 2 layers
+SEAMLESS = dict(arch="seamless-m4t-large-v2", batch=2, prompt_len=2048, enc_len=2048,
+                max_new=32)
+SEAMLESS_E2E_LAYERS = 2
+ENCDEC_ROWS = {"flash_attention:seamless_enc": "flash_attention:bf16:seamless_enc",
+               "flash_attention:seamless_dec": "flash_attention:bf16:seamless_dec"}
+# Phase 9, training: launch.train.main for qwen3-0.6b at full width and depth
+# in bf16 (20 steps of 2 x 2048 tokens, an async checkpoint at step 10 and a
+# final save), then a restored run that continues to step 30; the float32
+# check: one train step at full width, 2 layers, 2 x 512 tokens, on the card
+# against the CPU (the embedding gradient's atomics sum in no fixed order).
+# The learning rate: launch.train's default 3e-3 (sized for --smoke) raises the
+# full model's loss within 20 steps, 1e-3 lowers it the most of 3e-3, 1e-3,
+# 3e-4 and 1e-4 (scripts/profile_train_torch.py)
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "20", "--batch", "2", "--seq", "2048",
+              "--ckpt-every", "10", "--log-every", "5", "--lr", "1e-3"]
+TRAIN_RESTORED_STEPS = 30
+TRAIN_E2E = dict(layers=2, batch=2, seq=512)
+TRAIN_LOSS_TOL, TRAIN_NORM_RTOL = 1e-4, 1e-3
 CCL_WORST = (4095, 4096)  # CCL's worst cases: a serpentine and a full mask through every tile
 # Phase 4c, the near-data chains: the gateways' stores on 4 DMS servers in 2
 # processes behind the shm transport; a derived-cache budget that holds a
@@ -529,7 +567,16 @@ def main() -> None:
         print(json.dumps({"kernel": name, **{k: v for k, v in r.items() if k != "bound"},
                           "bound_ms": r["bound"][0]}))
 
-    # -- 8. report ---------------------------------------------------------------
+    # -- 8. the encoder-decoder family -----------------------------------------
+    enc_rec, enc_launches = encdec_phases(torch, dev, time_ms, sync)
+    for name, r in enc_rec.items():
+        print(json.dumps({"kernel": name, **{k: v for k, v in r.items() if k != "bound"},
+                          "bound_ms": r["bound"][0]}))
+
+    # -- 9. training ---------------------------------------------------------------
+    train_phases(torch, dev, sync)
+
+    # -- 10. report --------------------------------------------------------------
     sources = {
         "color_deconv": ("color_deconv.cu", "src/repro/kernels/color_deconv.py:30"),
         "morph_recon": ("morph_recon.cu", "src/repro/kernels/morph_recon.py:50"),
@@ -546,6 +593,12 @@ def main() -> None:
                                   "src/repro/kernels/flash_attention.py:104"),
         "flash_attention:mla": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
         "ssd_scan:mamba2": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:88"),
+        # the encoder-decoder's path (phase 8): its encoder, not causal, and
+        # its decoder's prefill
+        "flash_attention:seamless_enc": ("flash_attention.cu",
+                                         "src/repro/kernels/flash_attention.py:104"),
+        "flash_attention:seamless_dec": ("flash_attention.cu",
+                                         "src/repro/kernels/flash_attention.py:104"),
     }
     for name, r in [*rec.items(), *((f"morph_recon:{sub}", v) for sub, v in part.items())]:
         line = {"kernel": name, "launches": launches[name.split(":")[0]],
@@ -570,8 +623,10 @@ def main() -> None:
         ("ssd_scan", "ssd_scan", ""))})
     # the families' rows are their paths' dtypes: bf16, gemma's promoted float32
     rec.update({name: fam_rec[FAMILY_ROWS[name]] for name in FAMILY_ROWS})
+    rec.update({name: enc_rec[ENCDEC_ROWS[name]] for name in ENCDEC_ROWS})
     launches.update(lm_launches)
     launches.update(fam_launches)
+    launches.update(enc_launches)
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rec[name]
@@ -583,9 +638,9 @@ def main() -> None:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
-        if name in FAMILY_ROWS:  # the instance and the path that launched it
+        if name in FAMILY_ROWS or name in ENCDEC_ROWS:  # the instance and the path
             kernels[-1]["instance"] = r["instance"]
-            kernels[-1]["path"] = fam_launches[f"{name}:path"]
+            kernels[-1]["path"] = launches[f"{name}:path"]
         elif name.startswith("flash_attention"):
             kernels[-1]["instance_launches"] = launches["flash_attention:instances"][
                 name.split(":")[1]]
@@ -596,6 +651,7 @@ def main() -> None:
             kernels[-1]["kernel_launches"] = launches["ccl:kernel_launches"]
         if "phase_ms" in r:  # the device's time of a call, apart from the host's
             kernels[-1]["device_ms"] = r["phase_ms"]["device"]
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from the start")
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1418,8 +1474,9 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
     return rec, lm_launches
 
 
-def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str):
-    """Prefill ``prompt`` (behind ``prefix``, if any) on the kernels
+def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str, frames=None):
+    """Prefill ``prompt`` (behind ``prefix``, if any; after an encoder pass
+    over ``frames``, for an encoder-decoder) on the kernels
     (``cfg32``) and on the plain versions (``attn_impl="torch"``), then
     E2E_DECODE_STEPS decode steps fed the plain path's greedy tokens (teacher
     forcing); fails unless the prefill logits agree within E2E_LOGIT_TOL and
@@ -1433,6 +1490,9 @@ def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str):
     offset = 0 if prefix is None else prefix.shape[1]
     max_len = t + offset + E2E_DECODE_STEPS + 1
     batch = {"tokens": prompt} if prefix is None else {"tokens": prompt, "prefix": prefix}
+    enc_len = 64 if frames is None else frames.shape[1]
+    if frames is not None:
+        batch["frames"] = frames
     paths = (("kernels", cfg32), ("plain", cfg32.replace(attn_impl="torch")))
     steps, caches = {}, {}
     with torch.no_grad():
@@ -1440,7 +1500,7 @@ def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str):
             sync()
             t0 = time.perf_counter()
             logits, caches[name] = make_prefill_step(c)(
-                model, batch, make_cache(c, b, max_len, device=prompt.device))
+                model, batch, make_cache(c, b, max_len, enc_len=enc_len, device=prompt.device))
             sync()
             steps[name] = [logits[:, -1]]
             print(f"{label} float32 prefill ({name}) in {time.perf_counter() - t0:.3f} s",
@@ -1718,6 +1778,252 @@ def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
         rows[row] = sum(launches[run][kernel].values())
         rows[f"{row}:path"] = path
     return rec, rows
+
+
+def encdec_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
+    """Phase 8; returns (kernel records at seamless's shapes, by
+    ``kernel:dtype:path``; each row's launches and the path that made them)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import EncDec, registry
+    from repro_torch.models import encdec as E
+    from repro_torch.serve import generate
+
+    cfg = get_config(SEAMLESS["arch"])
+    b, t, s_enc, max_new = (SEAMLESS[k] for k in ("batch", "prompt_len", "enc_len", "max_new"))
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rec: dict[str, dict] = {}
+
+    def reset_counts() -> None:
+        fa_mod.launches = fa_mod.swa_launches = fa_mod.noncausal_launches = 0
+        fa_mod.instance_launches.update(dict.fromkeys(fa_mod.INSTANCES, 0))
+
+    # -- the encoder's and the decoder prefill's attention, served shapes -------
+    gen = torch.Generator(device=dev).manual_seed(8)
+    dtype, esize = torch.bfloat16, 2
+    for name, causal, tq in (("seamless_enc", False, s_enc), ("seamless_dec", True, t)):
+        q, k, v = (torch.randn((b, h, tq, d), generator=gen, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv))
+        got = ops.attention(q, k, v, causal=causal, impl="cuda")
+        want = ops.attention(q, k, v, causal=causal, impl="torch")
+        sync()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOLS["bf16"]
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention (bf16, {name}, causal={causal}) disagrees with its plain "
+                 f"version: max |err| {err}")
+        lib = partial(F.scaled_dot_product_attention, q, k, v, is_causal=causal)
+        lib_err = (lib().float() - want.float()).abs().max().item()
+        pairs = tq * (tq + 1) // 2 if causal else tq * tq  # live (query, key) pairs a head
+        rec[f"flash_attention:bf16:{name}"] = dict(
+            shape={"q": [b, hq, tq, d], "kv": [b, hkv, tq, d]}, causal=causal,
+            instance=fa_mod.instance(dtype, d), max_abs_err=err, library_max_abs_err=lib_err,
+            ms=time_ms(partial(ops.attention, q, k, v, causal=causal, impl="cuda"), 10),
+            plain_ms=time_ms(partial(ops.attention, q, k, v, causal=causal, impl="torch"), 3),
+            library_ms=time_ms(lib, 10),
+            bound=lm_bound((2 * q.numel() + k.numel() + v.numel()) * esize,
+                           4 * d * pairs * b * hq, dtype),
+        )
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    print(f"encdec kernel checks: flash_attention at ({b}, {hq}, {s_enc}, {d}) bf16, not "
+          f"causal and causal, agrees with its plain version", flush=True)
+
+    # -- serve seamless at full width and depth, bf16 ----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    model = EncDec(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (b, t)).astype(np.int32)
+    frames = rng.standard_normal((b, s_enc, cfg.d_model)).astype(np.float32) * 0.1
+    reset_counts()
+    stats: dict = {}
+    sync()
+    t0 = time.perf_counter()
+    toks = generate(model, cfg, prompt, max_new=max_new, frames=frames, device=dev, stats=stats)
+    sync()
+    wall_s = time.perf_counter() - t0
+    got = {"flash_attention": dict(fa_mod.instance_launches),
+           "not_causal": fa_mod.noncausal_launches}
+    want_inst = {"tensor_core": cfg.enc_layers + cfg.num_layers, "cuda_core": 0}
+    print(json.dumps({"lm_family": cfg.name, "path": "serve.generate",
+                      "shape": {"prompt": [b, t], "frames": [b, s_enc, cfg.d_model],
+                                "max_new": max_new},
+                      "wall_s": wall_s, "params": registry.count_params(cfg),
+                      "prefill_ms": 1e3 * stats["prefill_s"],
+                      "prefill_tok_per_s": b * t / stats["prefill_s"],
+                      "decode_tok_per_s": b * max_new / stats["decode_s"],
+                      "peak_bytes": torch.cuda.max_memory_allocated(), "launches": got,
+                      "nvidia_smi": nvidia_smi()}), flush=True)
+    if got["flash_attention"] != want_inst or got["not_causal"] != cfg.enc_layers:
+        fail(f"seamless: the served path launched attention {got}, not {want_inst} with "
+             f"{cfg.enc_layers} not causal (a launch per layer per prefill)")
+    if tuple(toks.shape) != (b, t + max_new) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"seamless served tokens: shape {tuple(toks.shape)} or ids outside "
+             f"[0, {cfg.vocab})")
+
+    # -- the encoder alone, on the served shape ------------------------------------
+    frames_t = torch.as_tensor(frames, device=dev)
+    with torch.no_grad():
+        enc = E.encode(model, frames_t, cfg)
+        if tuple(enc.shape) != (b, s_enc, cfg.d_model) or not bool(torch.isfinite(enc).all()):
+            fail(f"seamless encoder states: shape {tuple(enc.shape)} or non-finite values")
+        encoder_ms = time_ms(partial(E.encode, model, frames_t, cfg), 5)
+    print(json.dumps({"lm_family": cfg.name, "encoder_ms": encoder_ms,
+                      "frames": [b, s_enc, cfg.d_model], "nvidia_smi": nvidia_smi()}), flush=True)
+    del model, frames_t, enc, toks
+    torch.cuda.empty_cache()
+
+    # -- float32 end to end at full width, 2 + 2 layers ----------------------------
+    n = SEAMLESS_E2E_LAYERS
+    cfg32 = cfg.replace(num_layers=n, enc_layers=n, param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    model = EncDec(cfg32, device=dev, seed=0)
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (b, t)), dtype=torch.int32, device=dev)
+    frames32 = torch.as_tensor(rng.standard_normal((b, s_enc, cfg.d_model)).astype(np.float32)
+                               * 0.1, device=dev)
+    reset_counts()
+    label = f"{cfg.name} ({n} + {n} of {cfg.enc_layers} + {cfg.num_layers} layers)"
+    steps, _ = float32_end_to_end(torch, sync, model, cfg32, prompt, None, label, frames=frames32)
+    if (fa_mod.instance_launches != {"tensor_core": 0, "cuda_core": 2 * n}
+            or fa_mod.noncausal_launches != n):
+        fail(f"seamless float32 prefill launched attention {fa_mod.instance_launches} "
+             f"({fa_mod.noncausal_launches} not causal), not the CUDA-core kernel "
+             f"{2 * n} times, {n} not causal")
+    del model, steps, prompt, frames32
+    torch.cuda.empty_cache()
+    path = f"serve.generate, {cfg.name}, frames ({b}, {s_enc}, {cfg.d_model})"
+    rows = {"flash_attention:seamless_enc": got["not_causal"],
+            "flash_attention:seamless_enc:path": f"{path} (encoder)",
+            "flash_attention:seamless_dec": (sum(got["flash_attention"].values())
+                                             - got["not_causal"]),
+            "flash_attention:seamless_dec:path": f"{path} (decoder prefill)"}
+    return rec, rows
+
+
+def train_phases(torch, dev, sync) -> None:
+    """Phase 9: train qwen3-0.6b at full width and depth through
+    ``launch.train.main``, restore its checkpoint, and hold one float32 train
+    step at full width, 2 layers deep, against the CPU."""
+    import copy
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import LayerStack, reference_leaves
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.storage import CheckpointManager, DiskStorage
+    from repro_torch.storage.checkpoint import _leaf_paths
+    from repro_torch.train import AdamW, init_state, make_train_step
+
+    def flag(name: str) -> int:
+        return int(TRAIN_ARGV[TRAIN_ARGV.index(name) + 1])
+
+    cfg = get_config(TRAIN_ARGV[TRAIN_ARGV.index("--arch") + 1])
+    steps, bsz, seq = flag("--steps"), flag("--batch"), flag("--seq")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        argv = [*TRAIN_ARGV, "--ckpt-dir", ckdir]
+        fa_mod.launches = ssd_mod.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        run = train_main(argv)
+        sync()
+        wall_s = time.perf_counter() - t0
+        launched = {"flash_attention": fa_mod.launches, "ssd_scan": ssd_mod.launches}
+        losses, step_ms = run["losses"], run["step_ms"]
+        median_ms = float(np.median(step_ms[1:steps]))  # steps 2-20
+        save = run["async_save"]
+        print(json.dumps({
+            "train": cfg.name, "argv": " ".join(TRAIN_ARGV), "wall_s": wall_s,
+            "params": sum(p.numel() for p in run["state"]["params"].parameters()),
+            "median_step_ms": median_ms, "tokens_per_s": run["tokens_per_step"] / median_ms * 1e3,
+            "peak_bytes": run["peak_bytes"],
+            "loss": {"0": losses[0], "10": losses[10], str(steps - 1): losses[steps - 1]},
+            "step_ms": step_ms, "async_save": save, "kernel_launches": launched,
+            "nvidia_smi": nvidia_smi()}), flush=True)
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            fail(f"training: {len(losses)} losses, not {steps}, or non-finite ones")
+        if not losses[steps - 1] < losses[0]:
+            fail(f"training: the loss did not fall ({losses[0]}, {losses[10]}, "
+                 f"{losses[steps - 1]} at steps 0, 10, {steps - 1})")
+        if any(launched.values()):
+            fail(f"training launched kernels {launched}; it runs the plain versions "
+                 f"(no kernel has a backward)")
+        if save is None or save["step"] != 10 or save["bytes"] <= 0:
+            fail(f"training: the async save at step 10 is missing: {save}")
+
+        # the saved state, restored into a fresh one, equals the trained one bit for bit
+        ck = CheckpointManager(DiskStorage(ckdir), keep=2)
+        if ck.latest_step() != steps:
+            fail(f"training: the final save is at step {ck.latest_step()}, not {steps}")
+        trained = run["state"]
+        restored = ck.restore(init_state(cfg.replace(attn_impl="torch"), AdamW(), seed=1,
+                                         device=dev))
+        want, have = dict(_leaf_paths(trained)), dict(_leaf_paths(restored))
+        if set(want) != set(have):
+            fail(f"restore: leaves {sorted(set(want) ^ set(have))} differ")
+        n_bytes = 0
+        for name, leaf in want.items():
+            pairs = (zip(leaf, have[name]) if isinstance(leaf, LayerStack)
+                     else [(leaf, have[name])])
+            for a, b_ in pairs:
+                if a.dtype != b_.dtype or not torch.equal(a.detach(), b_.detach().to(a.device)):
+                    fail(f"restore: leaf {name} is not bit for bit the saved one")
+                n_bytes += a.numel() * a.element_size()
+        print(f"training restore: {len(want)} leaves, {n_bytes} bytes, bit for bit the saved "
+              f"state at step {int(restored['step'])}", flush=True)
+        del run, trained, restored, want, have
+        torch.cuda.empty_cache()
+
+        sync()
+        t0 = time.perf_counter()
+        again = train_main([*argv[:argv.index("--steps") + 1], str(TRAIN_RESTORED_STEPS),
+                            *argv[argv.index("--steps") + 2:], "--restore"])
+        sync()
+        print(json.dumps({"train": cfg.name, "restored_from": again["start_step"],
+                          "steps": len(again["losses"]), "first_loss": again["losses"][0],
+                          "last_loss": again["losses"][-1],
+                          "wall_s": time.perf_counter() - t0}), flush=True)
+        if again["start_step"] != steps or len(again["losses"]) != TRAIN_RESTORED_STEPS - steps:
+            fail(f"the restored run started at {again['start_step']} and ran "
+                 f"{len(again['losses'])} steps")
+        if not np.isfinite(again["losses"]).all():
+            fail(f"the restored run's losses are not finite: {again['losses']}")
+        del again
+        torch.cuda.empty_cache()
+
+    # one float32 train step at full width, 2 layers: the card against the CPU
+    cfg32 = cfg.replace(num_layers=TRAIN_E2E["layers"], param_dtype=torch.float32,
+                        compute_dtype=torch.float32, attn_impl="torch")
+    optim = AdamW()
+    cpu = init_state(cfg32, optim, seed=0, device="cpu")
+    model = copy.deepcopy(cpu["params"]).to(dev)
+    card = {"params": model, "opt": optim.init(reference_leaves(model)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    batch = SyntheticTokens(cfg.vocab, TRAIN_E2E["seq"], TRAIN_E2E["batch"], seed=0).batch_at(0)
+    step = make_train_step(cfg32, optim)
+    _, m_cpu = step(cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _, m_card = step(card, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+    norm_rel = abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1.0)
+    print(json.dumps({"train_f32": cfg.name, "layers": TRAIN_E2E["layers"],
+                      "tokens": [TRAIN_E2E["batch"], TRAIN_E2E["seq"]],
+                      "loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
+                      "loss_abs_err": loss_err, "grad_norm_card": float(m_card["grad_norm"]),
+                      "grad_norm_cpu": float(m_cpu["grad_norm"]), "grad_norm_rel_err": norm_rel}),
+          flush=True)
+    if loss_err > TRAIN_LOSS_TOL or norm_rel > TRAIN_NORM_RTOL:
+        fail(f"the float32 train step on the card: loss off the CPU's by {loss_err} "
+             f"(tolerance {TRAIN_LOSS_TOL}), grad_norm by {norm_rel} relative "
+             f"(tolerance {TRAIN_NORM_RTOL})")
+    del cpu, card, model
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

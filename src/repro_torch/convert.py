@@ -4,7 +4,8 @@ The WSI pipeline has no learned weights: its parameters are the
 ``WSIConfig`` fields and the 3x3 stain inverse. The LM's weights come as
 the reference's parameter pytree converted to numpy leaf by leaf. The
 reference hands both over as plain values, so this module needs nothing of
-the JAX package.
+the JAX package. :func:`reference_leaves` names the port's parameters as the
+reference's tree does, for the optimizers and the checkpoints.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.configs.wsi import WSIConfig
 from repro_torch.core.regions import host_tensor
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.registry import build
 
 
 def from_reference(
@@ -31,13 +32,15 @@ def from_reference(
     return WSIConfig(**dict(cfg_fields)), torch.as_tensor(m, device=resolve_device(device))
 
 
-def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
-    """The reference's LM parameter pytree, as nested dicts of numpy arrays
+def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> torch.nn.Module:
+    """The reference's parameter pytree, as nested dicts of numpy arrays
     (layer stacks as ``(L, ...)`` leaves: ``layers``, ``dense_layers``,
-    ``global_layers``), loaded into the port's model on ``device``
-    (``None``: the CUDA card). Every leaf must be there, with the spec's
-    shape; nothing else may be."""
-    model = LM(cfg, device="meta").to_empty(device=resolve_device(device))
+    ``global_layers``, and the encoder-decoder's ``enc_layers`` and
+    ``dec_layers``), loaded into the port's model of ``cfg``'s family
+    (``transformer.LM`` or ``encdec.EncDec``) on ``device`` (``None``: the
+    CUDA card). Every leaf must be there, with the spec's shape; nothing else
+    may be."""
+    model = build(cfg, device="meta").to_empty(device=resolve_device(device))
     seen = set()
 
     def load(dst: torch.Tensor, arr, name: str) -> None:
@@ -78,6 +81,32 @@ def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> LM
     if missing:
         raise ValueError(f"the reference tree lacks {sorted(missing)}")
     return model
+
+
+class LayerStack(list):
+    """The per-layer tensors of one stacked leaf of the reference's tree: the
+    reference holds them as one ``(L, ...)`` array, the port one tensor a
+    layer (``nn.ModuleList``). The optimizers keep their state for it
+    stacked, and the checkpoints write it stacked."""
+
+
+def reference_leaves(model: torch.nn.Module) -> dict[str, torch.Tensor | LayerStack]:
+    """``model``'s parameters by the reference's leaf names, the "/"-joined
+    paths of its tree (``embed/tok``, ``layers/attn/wq``), in the order
+    ``jax.tree_util`` flattens that tree (sorted keys, level by level). A
+    layer stack's leaf is a :class:`LayerStack` of its L per-layer tensors,
+    in order."""
+    out: dict[tuple[str, ...], torch.Tensor | LayerStack] = {}
+    for group, module in model.named_children():
+        layers = module if isinstance(module, torch.nn.ModuleList) else None
+        for sub in layers if layers is not None else [module]:
+            for name, p in sub.named_parameters():
+                path = (group, *name.split("."))
+                if layers is None:
+                    out[path] = p
+                else:
+                    out.setdefault(path, LayerStack()).append(p)
+    return {"/".join(path): out[path] for path in sorted(out)}
 
 
 def _leaves(tree: Mapping) -> list:

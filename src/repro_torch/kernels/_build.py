@@ -148,7 +148,16 @@ def check(code: int, name: str) -> None:
 def require(t: torch.Tensor, name: str, dtype: torch.dtype | tuple[torch.dtype, ...],
             ndim: int) -> None:
     """Raise unless ``t`` is what a kernel takes: a contiguous CUDA tensor of
-    ``dtype`` (or of one of several) with ``ndim`` dimensions."""
+    ``dtype`` (or of one of several) with ``ndim`` dimensions, which autograd
+    is not recording. The kernels have no backward: their outputs are written
+    through ctypes and carry no ``grad_fn``, so a gradient through one would
+    be dropped without a word; this refuses the call instead."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and autograd is recording a "
+            "tensor that requires grad (its gradient would be dropped); train on the "
+            "plain versions (attn_impl='torch' in the model config, impl='torch' in "
+            "kernels.ops) or call under torch.no_grad()")
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got {t.device}")
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):

@@ -19,6 +19,7 @@ from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset
 swa_launches = 0  # of those, launches with a sliding window
+noncausal_launches = 0  # of those, launches without the causal mask (an encoder's)
 INSTANCES = ("tensor_core", "cuda_core")
 instance_launches = dict.fromkeys(INSTANCES, 0)  # of those, launches per instance
 
@@ -48,7 +49,7 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """Softmax attention with GQA, causal mask, sliding window and query
     offset, on the card; returns (B, Hq, Tq, D) in q's dtype."""
-    global launches, swa_launches
+    global launches, swa_launches, noncausal_launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, f"attention {name}", DTYPES, 4)
     b, hq, tq, d = q.shape
@@ -87,6 +88,7 @@ def flash_attention_cuda(
         with _build.counter_lock:
             launches += 1
             swa_launches += window is not None
+            noncausal_launches += not causal
             instance_launches[which] += 1
     _build.check(code, f"flash_attention ({which})")
     return out

@@ -9,7 +9,10 @@ components, GLCM) and the LM path's two (flash attention, SSD scan).
   * ``"cuda"``  — the kernel; a CPU tensor is an error;
   * ``"torch"`` — the plain PyTorch version (``ref``) on any device, the
                   comparison that ``chip_smoke.py`` holds each kernel against.
-A kernel that fails to build or launch raises; nothing falls back.
+A kernel that fails to build or launch raises; nothing falls back. The
+kernels have no backward: a CUDA route refuses a tensor that autograd is
+recording (``_build.require``), so training runs the plain versions
+(``attn_impl="torch"``) and no gradient is dropped in silence.
 
 Names, argument order and defaults follow ``repro.kernels.ops``.
 """

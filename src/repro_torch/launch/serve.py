@@ -1,7 +1,9 @@
 """Batched serving driver: prefill + greedy decode over a request queue.
 
-Any decoder-only architecture of ``repro_torch.configs`` (all but the
-encoder-decoder one). On the card (the default device) at full width:
+Any architecture of ``repro_torch.configs``: the decoder-only ones, and the
+encoder-decoder ``seamless-m4t-large-v2``, whose encoder reads 64 stub
+frames a request (as the reference's launch.serve draws them). On the card (the
+default device) at full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --requests 2 --batch 2 --prompt-len 2048 --max-new 32
 On the CPU, reduced:
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import LM
+from repro_torch.models import build
 from repro_torch.serve import generate
 
 
@@ -40,7 +42,7 @@ def main(argv=None) -> dict:
     print(f"[serve] arch={cfg.name} family={cfg.family} device={dev}")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = LM(cfg, device=dev, seed=args.seed)
+    params = build(cfg, device=dev, seed=args.seed)
     rng = np.random.default_rng(args.seed)
 
     done = 0
@@ -48,13 +50,16 @@ def main(argv=None) -> dict:
     while done < args.requests:
         bs = min(args.batch, args.requests - done)
         prompts = rng.integers(0, cfg.vocab, (bs, args.prompt_len)).astype(np.int32)
-        prefix = None
-        if cfg.frontend:  # the modality stub's embeddings, drawn as the reference draws them
+        frames = prefix = None  # the stubs' embeddings, drawn as the reference draws them
+        if cfg.family == "encdec":
+            frames = rng.standard_normal((bs, 64, cfg.d_model)).astype(np.float32) * 0.1
+        if cfg.frontend:
             prefix = (rng.standard_normal((bs, cfg.frontend_len, cfg.d_model)).astype(np.float32)
                       * 0.1)
         stats: dict = {}
         out = generate(params, cfg, prompts, max_new=args.max_new,
-                       temperature=args.temperature, prefix=prefix, device=dev, stats=stats)
+                       temperature=args.temperature, prefix=prefix, frames=frames, device=dev,
+                       stats=stats)
         outputs.append(out.cpu().numpy())
         prefill_s.append(stats["prefill_s"])
         decode_s += stats["decode_s"]

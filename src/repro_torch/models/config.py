@@ -1,7 +1,8 @@
 """Unified model configuration (a copy of ``repro.models.config``).
 
-One dataclass describes every family the reference has; the port runs the
-decoder-only ones (``models.transformer``), not yet ``encdec``. Exact per-architecture
+One dataclass describes every family the reference has, and the port runs
+them all: the decoder-only ones (``models.transformer``) and ``encdec``
+(``models.encdec``). Exact per-architecture
 values live in ``repro_torch.configs``. Dtypes are ``torch.dtype``s, and
 ``attn_impl`` takes the port's kernel choices (``kernels.ops``).
 """

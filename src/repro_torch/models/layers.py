@@ -116,6 +116,7 @@ def attention_forward(
     cfg: ModelConfig,
     positions: torch.Tensor,  # (B, S)
     *,
+    causal: bool = True,
     window: int | None = None,
     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B, kv, T, hd) x2
     cache_pos: int | None = None,  # #valid entries already cached
@@ -125,7 +126,8 @@ def attention_forward(
     Prefill: S > 1, the new K/V are written into the cache at ``cache_pos``
     (in place) and the queries attend over the new K/V through
     ``ops.attention`` (the flash kernel on the card). Decode: S == 1 against
-    the whole cache with an explicit mask.
+    the whole cache with an explicit mask. ``causal=False`` (the encoder's
+    self-attention) lets every query see every key written so far.
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -143,12 +145,12 @@ def attention_forward(
         t = ck.shape[2]
         kpos = torch.arange(t, device=x.device)[None, :]
         qpos = (start + torch.arange(s, device=x.device))[:, None]
-        mask = kpos <= qpos
+        mask = kpos <= qpos if causal else kpos < start + s
         if window is not None:
             mask = mask & (qpos - kpos < window)
         out = _masked_attention(qh, ck, cv, mask, cfg, hd)
     else:
-        out = ops.attention(qh, kh, vh, causal=True, window=window, impl=cfg.attn_impl)
+        out = ops.attention(qh, kh, vh, causal=causal, window=window, impl=cfg.attn_impl)
     out = out.transpose(1, 2)  # (B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return y, new_cache

@@ -24,11 +24,17 @@ the cache's tensors in place (no copy of the cache per step) and return it.
 """
 from __future__ import annotations
 
-from typing import Any
+from functools import partial
+from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -114,8 +120,8 @@ def abstract_params(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 class ParamGroup(nn.Module):
     """Parameters built from a nested ``{name: ParamSpec or dict}``; ``p[name]``
-    reads a parameter or a nested group. Inference only: no parameter
-    requires a gradient."""
+    reads a parameter or a nested group. Built with ``requires_grad=False``,
+    for serving; the training path (``train.step``) turns gradients on."""
 
     def __init__(self, specs: dict, device: torch.device, generator: torch.Generator | None):
         super().__init__()
@@ -159,6 +165,49 @@ class LM(nn.Module):
 
 
 HybridLM = LM  # the name of the first slice, which ported the hybrid family
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (training)
+# ---------------------------------------------------------------------------
+_ATEN = torch.ops.aten
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` in
+    torch's terms: save the output of a matrix product with no batch dims and
+    recompute everything else. ``torch.einsum`` lowers every contraction to
+    ``aten.bmm``; a product with no batch dims (a weight product such as
+    ``bsd,dhk->bshk``) reaches it with a batch extent of 1, while attention's
+    ``bhqd,bhkd->bhqk`` has B*H. Saved: ``aten.mm``, ``aten.addmm`` and
+    ``aten.bmm`` at batch 1; so attention's scores and probabilities are
+    recomputed, as the reference's policy recomputes them."""
+    if op in (_ATEN.mm.default, _ATEN.addmm.default) or (
+            op is _ATEN.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """A layer body under ``cfg.remat`` (the reference's ``_maybe_remat``):
+    ``"none"`` runs it as is; ``"full"`` saves only its inputs
+    (``torch.utils.checkpoint``); ``"dots"`` saves the outputs of its matrix
+    products without batch dims (:func:`_save_dots`). Only while autograd
+    records: serving, under ``torch.no_grad``, runs the body as is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r} (want none, dots or full)")
+    context_fn = (partial(create_selective_checkpoint_contexts, _save_dots)
+                  if cfg.remat == "dots" else None)
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        extra = {} if context_fn is None else {"context_fn": context_fn}
+        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -259,14 +308,16 @@ def forward(
     positions = _positions(b, s, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
+        layer = maybe_remat(_ssm_layer, cfg)
         for lp in params["layers"]:
-            x, _ = _ssm_layer(lp, x, cfg)
+            x, _ = layer(lp, x, cfg)
     elif cfg.family == "hybrid":
         x = _hybrid_forward_nocache(params, x, cfg, positions)
     else:
+        layer = maybe_remat(_attn_mlp_layer, cfg)
         for stack, moe in _attn_stacks(cfg):
             for lp in params[stack]:
-                x, aux, _ = _attn_mlp_layer(lp, x, cfg, positions, moe=moe, window=cfg.window)
+                x, aux, _ = layer(lp, x, cfg, positions, moe=moe, window=cfg.window)
                 if moe:  # the reference sums the routed layers' losses only
                     aux_total = aux_total + aux
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -274,13 +325,15 @@ def forward(
 
 
 def _hybrid_forward_nocache(params, x, cfg, positions):
-    """Global layers between contiguous SWA segments."""
+    """Global layers between contiguous SWA segments; the SWA layers under
+    ``cfg.remat``, as the reference's scanned segments are."""
     n_glob, n_swa = _hybrid_split(cfg)
+    swa_layer = maybe_remat(_hybrid_layer, cfg)
     for gi, (lo, hi) in enumerate(_segments(n_swa, max(n_glob, 1))):
         if n_glob and gi < n_glob:
             x, _, _ = _hybrid_layer(params["global_layers"][gi], x, cfg, positions, window=None)
         for li in range(lo, hi):
-            x, _, _ = _hybrid_layer(params["layers"][li], x, cfg, positions, window=cfg.window)
+            x, _, _ = swa_layer(params["layers"][li], x, cfg, positions, window=cfg.window)
     return x
 
 

@@ -95,7 +95,8 @@ def prefetch_to_device(
 
     Uploads happen on a background thread (on a copy stream, on the card),
     so host->device copies overlap the consumer's compute.  ``device=None``
-    means the CUDA card.
+    means the CUDA card. An exception that ends ``it`` is raised to the
+    consumer after the batches staged before it.
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
@@ -104,6 +105,7 @@ def prefetch_to_device(
     q: collections.deque = collections.deque()
     cv = threading.Condition()
     DONE = object()
+    failed: list[BaseException] = []  # what ended the producer, raised to the consumer
 
     def _producer() -> None:
         try:
@@ -114,6 +116,8 @@ def prefetch_to_device(
                         cv.wait()
                     q.append(staged)
                     cv.notify_all()
+        except BaseException as e:  # noqa: BLE001 - handed to the consumer below
+            failed.append(e)
         finally:
             with cv:
                 q.append(DONE)
@@ -127,6 +131,8 @@ def prefetch_to_device(
             item = q.popleft()
             cv.notify_all()
         if item is DONE:
+            if failed:  # the reference's copy ends the stream here in silence
+                raise failed[0]
             return
         batch, event = item
         if event is not None:

@@ -9,16 +9,26 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> dict:
-    """Zeroed decode cache on ``device`` (``None``: the CUDA card)."""
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 4096,
+               device=None) -> dict:
+    """Zeroed decode cache on ``device`` (``None``: the CUDA card); an
+    encoder-decoder's also holds ``enc_len`` cross K/V positions."""
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, enc_len, device=device)
     return transformer.init_cache(cfg, batch, max_len, device=device)
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
+    if cfg.family == "encdec":
+        def prefill(params, batch, cache):
+            return encdec.prefill(params, batch["frames"], batch["tokens"], cfg, cache)
+
+        return prefill
+
     def prefill(params, batch, cache):
         prefix = batch.get("prefix") if cfg.frontend else None
         return transformer.prefill(params, batch["tokens"], cfg, cache, prefix_embeds=prefix)
@@ -27,6 +37,12 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
+    if cfg.family == "encdec":
+        def decode(params, tokens, cache, pos):
+            return encdec.decode_step(params, tokens, cfg, cache, pos)
+
+        return decode
+
     def decode(params, tokens, cache, pos):
         return transformer.decode_step(params, tokens, cfg, cache, pos)
 
@@ -55,6 +71,7 @@ def generate(
     max_len: int | None = None,
     temperature: float = 0.0,
     prefix=None,  # (B, frontend_len, d_model) modality embeddings: a tensor or an array
+    frames=None,  # (B, S_enc, d_model) encoder frames (encdec): a tensor or an array
     device=None,
     stats: dict | None = None,
 ) -> torch.Tensor:
@@ -66,7 +83,9 @@ def generate(
     before the prompt in the context: decode positions start at
     S0 + frontend_len, and the default cache holds S0 + frontend_len +
     max_new + 1 positions (the reference's default leaves out the prefix, so
-    its prefill does not fit; pass ``max_len`` to compare). If ``stats`` is
+    its prefill does not fit; pass ``max_len`` to compare). An
+    encoder-decoder takes its encoder's input as ``frames``, and its cross
+    cache holds ``frames.shape[1]`` positions. If ``stats`` is
     given, it receives ``prefill_s`` and ``decode_s``, host times around
     work that ends in a device synchronisation.
     """
@@ -83,6 +102,12 @@ def generate(
             raise ValueError(f"prefix of shape {tuple(batch['prefix'].shape)}; {cfg.name} "
                              f"takes ({b}, {cfg.frontend_len}, {cfg.d_model})")
         pos_offset = cfg.frontend_len
+    enc_len = 64  # the reference's cross cache without frames
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass its encoder frames")
+        batch["frames"] = torch.as_tensor(frames, device=dev)
+        enc_len = batch["frames"].shape[1]
     max_len = max_len or (s0 + pos_offset + max_new + 1)
 
     def clock() -> float:
@@ -91,7 +116,7 @@ def generate(
         return time.perf_counter()
 
     t0 = clock()
-    cache = make_cache(cfg, b, max_len, device=dev)
+    cache = make_cache(cfg, b, max_len, enc_len=enc_len, device=dev)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     logits, cache = prefill(params, batch, cache)

@@ -30,11 +30,12 @@ live.  Picking one:
   ``locality(key)`` query also lets the runtime scheduler price
   transfers per tier.
 
-The modules are copies of ``repro.storage``'s, which hold no JAX. The
-checkpoint manager is not ported yet: asking this package for it raises
-``AttributeError``.
+The modules are copies of ``repro.storage``'s, which hold no JAX, but the
+checkpoint manager (``storage.checkpoint``), which writes the reference's
+layout from torch tensors and modules.
 """
 from repro_torch.storage.autotune import IOConfig, TuneResult, autotune_io
+from repro_torch.storage.checkpoint import CheckpointManager
 from repro_torch.storage.codec import (
     WIRE_CODECS,
     Encoded,
@@ -80,6 +81,7 @@ from repro_torch.storage.tiers import (
 )
 
 __all__ = [
+    "CheckpointManager",
     "DiskCostModel",
     "DiskStats",
     "DiskStorage",
@@ -124,16 +126,3 @@ __all__ = [
     "TierStats",
 ]
 
-
-# names of repro.storage that this package does not have yet, by the module
-# of repro.storage that holds them
-NOT_PORTED = {"CheckpointManager": "checkpoint"}
-
-
-def __getattr__(name: str):
-    if name in NOT_PORTED:
-        raise AttributeError(
-            f"{name} (repro.storage.{NOT_PORTED[name]}) is not yet ported to "
-            f"repro_torch (ROADMAP queue 1)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -114,6 +114,26 @@ class _ManifestEntry:
     dtype: str
 
 
+def _dtype_name(c: _Chunk) -> str:
+    """The dtype a chunk's manifest entry records. A ``BFLOAT16`` region is
+    recorded as ``"bfloat16"`` whatever numpy type carries its 16-bit words
+    (``ml_dtypes.bfloat16``, as the reference writes it, or raw ``uint16``
+    words of a ``torch.bfloat16`` tensor), so the two packages' files agree."""
+    if c.key.elem_type == ElementType.BFLOAT16:
+        if c.payload.dtype.itemsize != 2:
+            raise TypeError(f"DISK: a bfloat16 region {c.key} needs 16-bit words, "
+                            f"got {c.payload.dtype}")
+        return "bfloat16"
+    return str(c.payload.dtype)
+
+
+def _stored_dtype(name: str) -> np.dtype:
+    """The numpy dtype a chunk reads back as: a ``"bfloat16"`` chunk as its
+    raw 16-bit words (``uint16``; ``view(torch.bfloat16)`` of a tensor of
+    them gives the values), so reading needs no ``ml_dtypes``."""
+    return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
+
+
 class _IOGroup:
     """Writers sharing one write session (paper: ADIOS group)."""
 
@@ -279,6 +299,7 @@ class DiskStorage:
     def put(self, key: RegionKey, bb: BoundingBox, array: np.ndarray) -> None:
         array = np.ascontiguousarray(array)
         chunk = _Chunk(key, bb, array)
+        _dtype_name(chunk)  # refuse a bfloat16 region of other than 16-bit words now
         if self.io_mode == "separated":
             with self._lock:
                 self.stats.virtual_comm_s += (
@@ -309,7 +330,7 @@ class DiskStorage:
                         offset=offset,
                         nbytes=len(raw),
                         shape=tuple(c.payload.shape),
-                        dtype=str(c.payload.dtype),
+                        dtype=_dtype_name(c),
                     )
                 )
                 offset += len(raw)
@@ -381,7 +402,7 @@ class DiskStorage:
                 raw = f.read(e.nbytes)
             with self._lock:
                 self.stats.bytes_read += e.nbytes
-            return np.frombuffer(raw, dtype=np.dtype(e.dtype)).reshape(e.shape)
+            return np.frombuffer(raw, dtype=_stored_dtype(e.dtype)).reshape(e.shape)
 
         pieces = ((e.bb, _read(e)) for e in entries if e.bb.intersects(roi))
         out, covered = _assemble(pieces, roi)

@@ -610,6 +610,69 @@ def test_family_generate_cuda_matches_plain(dev, arch):
     assert torch.equal(got, want)
 
 
+def test_flash_attention_encoder_shape_not_causal(dev):
+    """seamless's encoder self-attention at its served shape: 2 x 2048
+    frames, 16 heads at D = 64, bf16, no causal mask, on the tensor cores."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn((2, 16, 2048, 64), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    before = dict(flash_attention.instance_launches)
+    got = ops.attention(q, k, v, causal=False, impl="cuda")
+    assert flash_attention.instance_launches == {
+        **before, "tensor_core": before["tensor_core"] + 1}
+    want = ops.attention(q, k, v, causal=False, impl="torch")
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3, atol=8e-3)
+
+
+def test_encdec_generate_cuda_matches_plain(dev):
+    """seamless scaled down in float32: the same greedy tokens on the
+    kernels as on the plain versions; a prefill launches attention once an
+    encoder layer (not causal) and once a decoder layer (causal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import EncDec
+
+    cfg = get_config("seamless-m4t-large-v2").scaled_down()
+    model = EncDec(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (2, 21)).astype(np.int32)
+    frames = (rng.standard_normal((2, 37, cfg.d_model)) * 0.1).astype(np.float32)
+    before = flash_attention.launches
+    got = generate(model, cfg, prompt, max_new=8, frames=frames)
+    assert flash_attention.launches == before + cfg.enc_layers + cfg.num_layers
+    want = generate(model, cfg.replace(attn_impl="torch"), prompt, max_new=8, frames=frames)
+    assert torch.equal(got, want)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """qwen3-0.6b at full width, 2 layers, float32: one train step on the
+    card from the CPU's weights. The loss within 1e-4 and the gradient norm
+    within 1e-3 relative (the card's embedding gradient sums with atomics,
+    in no fixed order)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import reference_leaves
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.train import AdamW, init_state, make_train_step
+
+    cfg = get_config("qwen3-0.6b").replace(num_layers=2, param_dtype=torch.float32,
+                                           compute_dtype=torch.float32, attn_impl="torch")
+    optim = AdamW()
+    cpu = init_state(cfg, optim, seed=0, device="cpu")
+    model = copy.deepcopy(cpu["params"]).to(dev)
+    card = {"params": model, "opt": optim.init(reference_leaves(model)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    batch = SyntheticTokens(cfg.vocab, 128, 2, seed=0).batch_at(0)
+    step = make_train_step(cfg, optim)
+    _, m_cpu = step(cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _, m_card = step(card, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-4
+    assert abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1.0) <= 1e-3
+    on_kernels = make_train_step(cfg.replace(attn_impl="auto"), optim)
+    with pytest.raises(RuntimeError, match="attn_impl='torch'"):  # the kernel route refuses
+        on_kernels(card, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+
+
 def test_rt_two_stage_pipeline_cuda_matches_analyze_tile(dev):
     """Segmentation -> Features under the runtime, on the card at 512^2: the
     labels read back from DMS2 equal ``analyze_tile``'s bit for bit."""

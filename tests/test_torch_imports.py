@@ -28,6 +28,12 @@ RUNTIME_SLICE = (
 FAMILIES_SLICE = tuple(f"repro_torch.configs.{m}" for m in (
     "qwen3_0_6b", "gemma_2b", "granite_20b", "internvl2_1b", "nemotron_4_340b",
     "deepseek_v2_lite_16b", "qwen3_moe_235b_a22b", "mamba2_2_7b", "seamless_m4t_large_v2"))
+# the encoder-decoder family and the training path
+TRAINING_SLICE = (
+    "repro_torch.models.encdec", "repro_torch.storage.checkpoint", "repro_torch.train",
+    "repro_torch.train.optim", "repro_torch.train.step", "repro_torch.data",
+    "repro_torch.data.tokens", "repro_torch.data.loader", "repro_torch.launch.train",
+)
 # the near-data chains and the serving tier, with the storage modules it needs
 SERVING_SLICE = (
     "repro_torch.kernels.chains", "repro_torch.serve.fair", "repro_torch.serve.rcache",
@@ -56,7 +62,7 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                 "repro_torch.models.registry", "repro_torch.configs.registry",
                 "repro_torch.configs.hymba_1_5b", "repro_torch.serve.step",
                 "repro_torch.launch.serve", "repro_torch.convert", *RUNTIME_SLICE,
-                *SERVING_SLICE, *FAMILIES_SLICE):
+                *SERVING_SLICE, *FAMILIES_SLICE, *TRAINING_SLICE):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
@@ -87,8 +93,10 @@ def _imported_roots(path: Path):
 def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_lm_torch.py",
+        ROOT / "scripts" / "profile_train_torch.py",
         ROOT / "examples" / "serve_lm_torch.py", ROOT / "examples" / "wsi_pipeline_torch.py",
         ROOT / "examples" / "quickstart_torch.py", ROOT / "examples" / "serve_regions_torch.py",
+        ROOT / "examples" / "train_lm_torch.py",
     ]
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & {"jax", "jaxlib", "repro"})
@@ -144,6 +152,22 @@ def test_lm_entry_points_raise_without_cuda():
         generate(model, cfg, np.zeros((1, 4), np.int32), max_new=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_main(["--arch", "hymba-1.5b", "--smoke", "--requests", "1"])
+
+
+def test_encdec_and_training_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import EncDec
+    from repro_torch.train import AdamW, init_state
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EncDec(get_config("seamless-m4t-large-v2").scaled_down())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(get_config("qwen3-0.6b").scaled_down(), AdamW())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
 def _run_smoke(cwd: Path):

@@ -160,14 +160,19 @@ def test_full_hymba_param_count_and_shapes_match_reference():
 
 
 def test_other_families_and_archs_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("seamless-m4t-large-v2")
+    """Every family is ported: the encoder-decoder config builds (an
+    ``EncDec``, not an ``LM``); an unknown arch still raises."""
+    from repro_torch.models import EncDec, build
+
+    cfg = get_config("seamless-m4t-large-v2")
+    assert cfg.family == "encdec"
+    assert isinstance(build(cfg, device="meta"), EncDec)
+    assert set(registry.abstract_params(cfg)) == {"embed", "enc_layers", "enc_norm",
+                                                  "dec_layers", "final_norm"}
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         HybridLM(ModelConfig(family="encdec"), device="meta")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.abstract_params(ModelConfig(family="encdec"))
 
 
 @pytest.mark.parametrize("knob", [

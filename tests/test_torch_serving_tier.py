@@ -197,10 +197,22 @@ def test_low_priority_hog_cannot_starve_interactive_requests():
         for _ in range(4)
     ]
     vip = gw.submit(_key(), BoundingBox((0, 0), (16, 16)), priority="interactive")
+    # count the finished hogs when the vip resolves, in the worker that
+    # resolves it (set_result runs the callback before the worker moves on):
+    # counted after result() returns, the worker may have drained the rest
+    # of the backlog while this thread woke up
+    done_hogs = []
+    counted = threading.Event()
+
+    def count(_):
+        done_hogs.append(sum(1 for t in hog if t.done()))
+        counted.set()
+
+    vip.add_done_callback(count)
     gw.resume()
     vip.result(30.0)  # resolves long before the hog's 64-deep backlog
-    done_hogs = sum(1 for t in hog if t.done())
-    assert done_hogs < len(hog), "interactive request waited out the whole backlog"
+    assert counted.wait(30.0) and len(done_hogs) == 1
+    assert done_hogs[0] < len(hog), "interactive request waited out the whole backlog"
     for t in hog:
         t.result(30.0)
     classes = gw.storage_stats()["gateway"]["classes"]
