@@ -70,7 +70,26 @@ Phases, each fatal on failure:
      runs the plain attention), the saved state restored leaf for leaf bit
      for bit, a ``--restore`` run to step 30, and one float32 train step at
      full width, 2 layers, on the card against the CPU;
-  10. print the per-kernel JSON lines, the ``kernels`` line and, last, the
+  10. the multi-device machinery: (a) ``launch.serve.main`` and
+     ``launch.train.main`` for qwen3-0.6b at full width and depth on their
+     one-rank mesh (a process group of one rank, ``nccl``; every sharding
+     the identity) at phase 7b's and phase 9's seeds and sizes (training 10
+     steps, no checkpoint), their tokens held equal to phase 7b's and their
+     losses at steps 0 and 9 to phase 9's, and ``generate`` and a train
+     step timed with and without the mesh, in turns; (b) two processes on
+     the one card over ``gloo`` (NCCL takes one rank a device): qwen3-0.6b
+     at full width, 2 layers, float32, a prefill on a (data=1, model=2)
+     mesh, each rank launching the attention kernel on its 8 of 16 query
+     heads, its logits' shard against the one-rank prefill's, and one train
+     step on a (data=2, model=1) mesh against the one-rank step (all-reduces
+     only: gloo's all-gather of CUDA tensors crashes, so ZeRO-1 is left to
+     the CPU tests), with the launch counters set to 0 just before each and
+     read just after; (c) the dry
+     run, on the host alone: qwen3-0.6b x train_4k on the (16, 16) mesh and
+     deepseek-v2-lite-16b x decode_32k on the (2, 16, 16) one, each
+     roofline's three terms on the H100 spec (predictions, not
+     measurements) and the seconds each took;
+  11. print the per-kernel JSON lines, the ``kernels`` line and, last, the
      ``{"ok": true, "device": ...}`` line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -194,6 +213,35 @@ CHAIN_FEATURE_RTOL = 1e-5
 FIXED_POINT_ITERS = 100_000  # the plain reconstruction and CCL, run to their fixed points
 NEAR_DATA_PLAIN_BAND_ROWS = 64  # the plain GLCM band by band: 0.5 GB of one-hot at 256 bins
 GLCM_B1_BINS = (32, GLCM_WIDE_BINS)
+# Phase 10, the multi-device machinery. (a) The one-rank mesh of the
+# launchers: qwen3-0.6b served as phase 7b serves it and trained as phase 9
+# trains it, for 10 steps with no checkpoint (the warmup's 10 steps, whose
+# learning rates do not depend on the run's length); the losses at steps 0
+# and 9 within MESH_LOSS_TOL of phase 9's (the same seed on the same card;
+# the backward's atomics need not repeat bit for bit). Then generate and a
+# train step timed three times plain and three times on the mesh, in turns
+# (plain, mesh, mesh, plain, plain, mesh): the mesh's cost, the difference
+# of the medians, is held to the spread of the repeats (the larger range).
+MESH_ARCH = "qwen3-0.6b"
+MESH_TRAIN_STEPS = 10
+MESH_LOSS_TOL = 1e-3
+# (b) Two ranks on the one card (gloo carries CUDA tensors; NCCL takes one
+# rank a device): qwen3-0.6b at full width, 2 layers, float32, a prefill of
+# 2 x 512 tokens on (data=1, model=2), each rank's shard of the
+# vocab-sharded logits against the same slice of the one-rank prefill's, and
+# one train step of 2 x 512 on (data=2, model=1) against the one-rank step;
+# the attention kernel launches once a layer on each rank. gloo's all-gather
+# of CUDA tensors (all_gather_into_tensor) ends the process with SIGSEGV
+# (torch 2.11, CUDA 12.8), so the card runs only what all-reduces carry:
+# the logits are compared shard by shard, not gathered, and the step runs
+# without ZeRO-1, whose update gathers the parameters (it runs in four gloo
+# processes on the CPU, tests/test_torch_sharded.py)
+MESH2 = dict(layers=2, batch=2, seq=512)
+MESH2_LOGIT_TOL, MESH2_LOSS_TOL, MESH2_NORM_RTOL = 1e-4, 1e-5, 1e-4
+# (c) The dry run's cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False), ("deepseek-v2-lite-16b", "decode_32k", True))
+# what the earlier phases served and trained, for phase 10(a)
+EARLIER: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -576,7 +624,10 @@ def main() -> None:
     # -- 9. training ---------------------------------------------------------------
     train_phases(torch, dev, sync)
 
-    # -- 10. report --------------------------------------------------------------
+    # -- 10. the multi-device machinery ----------------------------------------------
+    mesh_phases(torch, dev, sync)
+
+    # -- 11. report --------------------------------------------------------------
     sources = {
         "color_deconv": ("color_deconv.cu", "src/repro/kernels/color_deconv.py:30"),
         "morph_recon": ("morph_recon.cu", "src/repro/kernels/morph_recon.py:50"),
@@ -1684,6 +1735,9 @@ def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
             if toks.shape != (b, t + max_new) or toks.min() < 0 or toks.max() >= cfg.vocab:
                 fail(f"{arch} served tokens: shape {toks.shape} or ids outside [0, {cfg.vocab})")
         launches[arch] = got
+        if arch == MESH_ARCH:  # phase 10(a) holds its mesh-of-one run to this one
+            EARLIER["serve"] = {k: served[k] for k in ("outputs", "prefill_ms",
+                                                       "decode_tok_per_s")}
         del served
         torch.cuda.empty_cache()
 
@@ -1957,6 +2011,7 @@ def train_phases(torch, dev, sync) -> None:
                  f"(no kernel has a backward)")
         if save is None or save["step"] != 10 or save["bytes"] <= 0:
             fail(f"training: the async save at step 10 is missing: {save}")
+        EARLIER["train"] = {"losses": losses, "median_step_ms": median_ms}
 
         # the saved state, restored into a fresh one, equals the trained one bit for bit
         ck = CheckpointManager(DiskStorage(ckdir), keep=2)
@@ -2024,6 +2079,237 @@ def train_phases(torch, dev, sync) -> None:
              f"(tolerance {TRAIN_NORM_RTOL})")
     del cpu, card, model
     torch.cuda.empty_cache()
+
+
+
+def mesh_phases(torch, dev, sync) -> None:
+    """Phase 10: the launchers on their one-rank mesh against phases 7b and 9,
+    two ranks on the one card, and two dry-run cells (see the constants)."""
+    import tempfile
+    from contextlib import nullcontext
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build
+    from repro_torch.models.spec import activation_sharding
+    from repro_torch.serve import generate
+    from repro_torch.train import AdamW, AdamWConfig, init_state, make_train_step
+
+    # -- (a) the launchers' one-rank mesh ------------------------------------------------
+    argv = ["--arch", MESH_ARCH, *FAMILY_ARGV]
+    sync()
+    t0 = time.perf_counter()
+    served = serve_main(argv)
+    sync()
+    wall_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(served["outputs"],
+                                                    EARLIER["serve"]["outputs"]))
+    print(json.dumps({"mesh_of_one": "serve", "argv": " ".join(argv), "wall_s": wall_s,
+                      "prefill_ms": served["prefill_ms"],
+                      "decode_tok_per_s": served["decode_tok_per_s"],
+                      "phase_7b": {k: EARLIER["serve"][k] for k in ("prefill_ms",
+                                                                    "decode_tok_per_s")},
+                      "tokens_equal_7b": same}), flush=True)
+    if not same:
+        fail("phase 10(a): the mesh of one served other tokens than phase 7b")
+    del served
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckdir:
+        steps_at = TRAIN_ARGV.index("--steps") + 1
+        argv = [*TRAIN_ARGV[:steps_at], str(MESH_TRAIN_STEPS), *TRAIN_ARGV[steps_at + 1:],
+                "--ckpt-dir", ckdir]
+        argv[argv.index("--ckpt-every") + 1] = "0"
+        sync()
+        t0 = time.perf_counter()
+        run = train_main(argv)
+        sync()
+        wall_s = time.perf_counter() - t0
+    losses, earlier = run["losses"], EARLIER["train"]
+    last = MESH_TRAIN_STEPS - 1
+    errs = {str(i): abs(losses[i] - earlier["losses"][i]) for i in (0, last)}
+    median_ms = float(np.median(run["step_ms"][1:]))
+    print(json.dumps({"mesh_of_one": "train", "argv": " ".join(argv[:-2]), "wall_s": wall_s,
+                      "loss": {str(i): losses[i] for i in (0, last)},
+                      "phase_9_loss": {str(i): earlier["losses"][i] for i in (0, last)},
+                      "loss_abs_err": errs, "median_step_ms": median_ms,
+                      "phase_9_median_step_ms": earlier["median_step_ms"]}), flush=True)
+    if len(losses) != MESH_TRAIN_STEPS or max(errs.values()) > MESH_LOSS_TOL:
+        fail(f"phase 10(a): the mesh of one trained {len(losses)} steps, losses off phase 9's "
+             f"by {errs} (tolerance {MESH_LOSS_TOL})")
+    del run
+    torch.cuda.empty_cache()
+
+    # the mesh's own cost: the same work plain and on the mesh, in turns
+    cfg = get_config(MESH_ARCH)
+    mesh = make_host_mesh(1, 1, device=dev)
+    model = build(cfg, device=dev, seed=0)
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab, (2, 2048)).astype(np.int32)
+    tcfg = cfg.replace(attn_impl="torch")
+    optim = AdamW(AdamWConfig(lr=1e-3))
+    state = init_state(tcfg, optim, seed=0, device=dev)
+    step = make_train_step(tcfg, optim)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticTokens(cfg.vocab, 2048, 2, seed=0).batch_at(0).items()}
+    step(state, batch)  # the first calls' one-time costs
+    generate(model, cfg, prompt, max_new=32, device=dev)
+    times: dict = {"serve": {"plain": [], "mesh": []}, "train": {"plain": [], "mesh": []}}
+    for kind in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+        with activation_sharding(mesh) if kind == "mesh" else nullcontext():
+            stats: dict = {}
+            generate(model, cfg, prompt, max_new=32, device=dev, stats=stats)
+            times["serve"][kind].append(stats["prefill_s"] + stats["decode_s"])
+            sync()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch)
+            float(metrics["loss"])
+            times["train"][kind].append(time.perf_counter() - t0)
+    for what, t in times.items():
+        cost = float(np.median(t["mesh"]) - np.median(t["plain"]))
+        spread = max(max(t["plain"]) - min(t["plain"]), max(t["mesh"]) - min(t["mesh"]))
+        print(json.dumps({"mesh_of_one_cost": what, "plain_s": t["plain"], "mesh_s": t["mesh"],
+                          "mesh_minus_plain_s": cost, "repeat_spread_s": spread}), flush=True)
+        if cost > spread:
+            fail(f"phase 10(a): the mesh of one slows {what} by {cost:.4f} s, more than its "
+                 f"repeats differ ({spread:.4f} s)")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+    # -- (b) two ranks on the one card ------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_2ranks_") as tmp:
+        sync()
+        t0 = time.perf_counter()
+        mp.spawn(_two_ranks, args=(os.path.join(tmp, "store"), tmp), nprocs=2, join=True)
+        wall_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
+    print(json.dumps({"two_ranks": ranks, "wall_s": wall_s}), flush=True)
+    cfg = get_config(MESH_ARCH)
+    for r, res in enumerate(ranks):
+        p = res["prefill"]
+        if p["launches"] != MESH2["layers"] or p["local_heads"] != [
+                cfg.num_heads // 2, cfg.num_kv_heads // 2]:
+            fail(f"phase 10(b) rank {r}: {p['launches']} attention launches on heads "
+                 f"{p['local_heads']}, not {MESH2['layers']} on half of each")
+        if p["max_abs_err"] > MESH2_LOGIT_TOL:
+            fail(f"phase 10(b) rank {r}: the (1, 2) prefill's logits off the one-rank "
+                 f"prefill's by {p['max_abs_err']} (tolerance {MESH2_LOGIT_TOL})")
+        t = res["train"]
+        if t["loss_abs_err"] > MESH2_LOSS_TOL or t["grad_norm_rel_err"] > MESH2_NORM_RTOL:
+            fail(f"phase 10(b) rank {r}: the (2, 1) ZeRO-1 step's loss off by "
+                 f"{t['loss_abs_err']}, grad_norm by {t['grad_norm_rel_err']} relative")
+
+    # -- (c) the dry run, on the host --------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        for arch, shape, multi in DRYRUN_CELLS:
+            rec = run_cell(arch, shape, multi, out)
+            if rec["status"] != "ok":
+                fail(f"phase 10(c): the dry run of {arch} x {shape}: {rec.get('error')}")
+            r = rec["roofline"]
+            print(json.dumps({"dryrun": f"{arch} x {shape} x {rec['mesh']}",
+                              "chips": rec["chips"], "wall_s": rec["total_s"],
+                              "trace_s": rec["lower_s"],
+                              "predicted_on": "H100 SXM spec (analysis/roofline.py)",
+                              "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                              "collective_s": r["collective_s"], "bottleneck": r["bottleneck"],
+                              "flops_per_rank": rec["hlo"]["flops"],
+                              "bytes_per_rank": rec["hlo"]["bytes"],
+                              "collective_bytes_per_rank": rec["hlo"]["collective_bytes"],
+                              "collectives": rec["hlo"]["collective_counts"],
+                              "memory_analysis": rec["memory_analysis"]}), flush=True)
+
+
+def _two_ranks(rank: int, store: str, outdir: str) -> None:
+    """One rank of phase 10(b), in its own process on the card; writes its
+    results to ``outdir/rank<r>.json``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, shard_params
+    from repro_torch.models.spec import activation_sharding, local_box
+    from repro_torch.serve import make_cache, make_prefill_step
+    from repro_torch.serve.step import cache_shardings, shard_tree
+    from repro_torch.train import AdamW, init_state, make_train_step, shard_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    dev = torch.device("cuda")
+    try:
+        cfg = get_config(MESH_ARCH).replace(num_layers=MESH2["layers"],
+                                            param_dtype=torch.float32,
+                                            compute_dtype=torch.float32)
+        b, s = MESH2["batch"], MESH2["seq"]
+        prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (b, s)),
+                                 dtype=torch.int32, device=dev)
+        out: dict = {"rank": rank}
+        with torch.no_grad():
+            model = build(cfg, device=dev, seed=0)
+            want, _ = make_prefill_step(cfg)(model, {"tokens": prompt},
+                                             make_cache(cfg, b, s, device=dev))
+            mesh = make_host_mesh(1, 2, device=dev)
+            sharded = shard_params(copy.deepcopy(model), mesh)
+            del model
+            with activation_sharding(mesh):
+                cache = make_cache(cfg, b, s, device=dev)
+                cache = shard_tree(cache, mesh, cache_shardings(cfg, cache, mesh))
+                fa_mod.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with CostCounter() as counter:
+                    got, _ = make_prefill_step(cfg)(sharded, {"tokens": prompt}, cache)
+                torch.cuda.synchronize()
+                launches = fa_mod.launches
+            attn = sharded.layers[0].attn
+            box = local_box(tuple(got.shape), mesh, got.placements)
+            out["prefill"] = {
+                "launches": launches, "seconds": time.perf_counter() - t0,
+                "local_heads": [attn.wq.to_local().shape[1], attn.wk.to_local().shape[1]],
+                "logits_shard": [[s.start, s.stop] for s in box],
+                "max_abs_err": (got.to_local() - want[box]).abs().max().item(),
+                "collectives": dict(counter.cost.collective_counts),
+                "collective_bytes": counter.cost.collective_bytes}
+            del sharded, cache, got, want
+
+        tcfg = cfg.replace(attn_impl="torch")
+        optim = AdamW()
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in SyntheticTokens(cfg.vocab, s, b, seed=0).batch_at(0).items()}
+        step = make_train_step(tcfg, optim)
+        _, m1 = step(init_state(tcfg, optim, seed=0, device=dev), batch)
+        mesh = make_host_mesh(2, 1, device=dev)
+        state = shard_state(init_state(tcfg, optim, seed=0, device=dev), tcfg, mesh, optim)
+        fa_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_sharding(mesh), CostCounter() as counter:
+            _, m2 = step(state, batch)
+        loss2, norm2 = float(m2["loss"]), float(m2["grad_norm"])
+        out["train"] = {
+            "seconds": time.perf_counter() - t0, "loss": loss2, "loss_one_rank": float(m1["loss"]),
+            "loss_abs_err": abs(loss2 - float(m1["loss"])),
+            "grad_norm_rel_err": abs(norm2 / float(m1["grad_norm"]) - 1.0),
+            "launches": fa_mod.launches,
+            "collectives": dict(counter.cost.collective_counts),
+            "collective_bytes": counter.cost.collective_bytes}
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

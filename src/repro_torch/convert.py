@@ -19,6 +19,7 @@ from repro_torch.core.regions import host_tensor
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import build
+from repro_torch.models.transformer import shard_params
 
 
 def from_reference(
@@ -32,14 +33,16 @@ def from_reference(
     return WSIConfig(**dict(cfg_fields)), torch.as_tensor(m, device=resolve_device(device))
 
 
-def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> torch.nn.Module:
+def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None, *, mesh=None,
+                             rules: dict | None = None) -> torch.nn.Module:
     """The reference's parameter pytree, as nested dicts of numpy arrays
     (layer stacks as ``(L, ...)`` leaves: ``layers``, ``dense_layers``,
     ``global_layers``, and the encoder-decoder's ``enc_layers`` and
     ``dec_layers``), loaded into the port's model of ``cfg``'s family
     (``transformer.LM`` or ``encdec.EncDec``) on ``device`` (``None``: the
     CUDA card). Every leaf must be there, with the spec's shape; nothing else
-    may be."""
+    may be. With a ``mesh``, every rank passes the whole tree and keeps its
+    shards (``transformer.shard_params`` under ``rules``)."""
     model = build(cfg, device="meta").to_empty(device=resolve_device(device))
     seen = set()
 
@@ -80,7 +83,7 @@ def lm_params_from_reference(tree: Mapping, cfg: ModelConfig, device=None) -> to
     missing = {name for name, _ in model.named_parameters()} - seen
     if missing:
         raise ValueError(f"the reference tree lacks {sorted(missing)}")
-    return model
+    return model if mesh is None else shard_params(model, mesh, rules)
 
 
 class LayerStack(list):

@@ -21,6 +21,7 @@ import threading
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -148,10 +149,14 @@ def check(code: int, name: str) -> None:
 def require(t: torch.Tensor, name: str, dtype: torch.dtype | tuple[torch.dtype, ...],
             ndim: int) -> None:
     """Raise unless ``t`` is what a kernel takes: a contiguous CUDA tensor of
-    ``dtype`` (or of one of several) with ``ndim`` dimensions, which autograd
-    is not recording. The kernels have no backward: their outputs are written
+    ``dtype`` (or of one of several) with ``ndim`` dimensions, not a
+    ``DTensor``, which autograd is not recording. The kernels have no backward: their outputs are written
     through ctypes and carry no ``grad_fn``, so a gradient through one would
     be dropped without a word; this refuses the call instead."""
+    if isinstance(t, DTensor):
+        raise TypeError(
+            f"{name}: a DTensor; the kernel would read one rank's local shard as if it were "
+            "the whole tensor. Call it on local shards (spec.local_region, local_map)")
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward, and autograd is recording a "

@@ -144,7 +144,12 @@ def ssd_scan(
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y (B, T, H, P), final state (B, H, N, P) float32); ``chunk`` is the
-    kernel's chunk length (the plain version steps one position at a time)."""
+    kernel's chunk length (the plain version steps one position at a time).
+    On the meta device (the dry run) the plain version is the chunked one,
+    ``ref.ssd_scan_chunked``, the same function: stepping would trace T
+    steps in Python and compute nothing."""
     if _use_kernel(impl, x):
         return ssd_scan_cuda(x, dt, a, b_, c_, d_, chunk=chunk)
+    if x.device.type == "meta":
+        return ref.ssd_scan_chunked(x, dt, a, b_, c_, d_, chunk=chunk)
     return ref.ssd_scan_ref(x, dt, a, b_, c_, d_)

@@ -1,4 +1,7 @@
-"""Batched serving driver: prefill + greedy decode over a request queue.
+"""Batched serving launcher: prefill + decode over a request queue, greedy
+or sampled at ``--temperature`` (one ``torch.Generator`` seeded with
+``--seed``), on a one-rank mesh under ``activation_sharding`` as the
+reference runs it (every sharding the identity there).
 
 Any architecture of ``repro_torch.configs``: the decoder-only ones, and the
 encoder-decoder ``seamless-m4t-large-v2``, whose encoder reads 64 stub
@@ -18,7 +21,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build
+from repro_torch.models.spec import activation_sharding
 from repro_torch.serve import generate
 
 
@@ -44,6 +49,9 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     params = build(cfg, device=dev, seed=args.seed)
     rng = np.random.default_rng(args.seed)
+    sampler = (torch.Generator(device=dev).manual_seed(args.seed) if args.temperature > 0
+               else None)
+    mesh = make_host_mesh(data=1, model=1, device=dev)
 
     done = 0
     outputs, prefill_s, decode_s, decode_tokens = [], [], 0.0, 0
@@ -57,9 +65,10 @@ def main(argv=None) -> dict:
             prefix = (rng.standard_normal((bs, cfg.frontend_len, cfg.d_model)).astype(np.float32)
                       * 0.1)
         stats: dict = {}
-        out = generate(params, cfg, prompts, max_new=args.max_new,
-                       temperature=args.temperature, prefix=prefix, frames=frames, device=dev,
-                       stats=stats)
+        with activation_sharding(mesh):
+            out = generate(params, cfg, prompts, max_new=args.max_new,
+                           temperature=args.temperature, generator=sampler, prefix=prefix,
+                           frames=frames, device=dev, stats=stats)
         outputs.append(out.cpu().numpy())
         prefill_s.append(stats["prefill_s"])
         decode_s += stats["decode_s"]

@@ -1,16 +1,17 @@
-"""End-to-end training, on one card (``repro.launch.train``).
+"""End-to-end training (``repro.launch.train``).
 
 Wires the substrates together as the reference does: synthetic data ->
 region-template loader (DMS staging + device prefetch) -> train step
 (AdamW, cosine schedule with 10 warmup steps) -> async region-template
 checkpoints (DISK engine, I/O groups of 2) with restore and a final save.
 
-The reference runs on a one-device mesh (``make_host_mesh(data=1,
-model=1)``) under ``activation_sharding``; on one card neither has a
-counterpart, and they come with the device mesh of a later slice. The
-model trains on the plain versions of the kernels: ``attn_impl="torch"``
-is set on the config, as the reference trains on its plain ``"xla"``
-attention, and no kernel here has a backward yet.
+As the reference, it runs on a one-rank mesh (``make_host_mesh(data=1,
+model=1)``, a process group of one rank: ``nccl`` on the card, ``gloo`` on
+the CPU) under ``activation_sharding``; on that mesh every sharding is the
+identity, so the tensors stay plain. The model trains on the plain
+versions of the kernels: ``attn_impl="torch"`` is set on the config, as the
+reference trains on its plain ``"xla"`` attention, and no kernel here has
+a backward yet.
 
 On the CPU, reduced:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
@@ -31,6 +32,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import BoundingBox
 from repro_torch.data import RegionTemplateLoader, SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.spec import activation_sharding
 from repro_torch.storage import CheckpointManager, DiskStorage, DistributedMemoryStorage
 from repro_torch.train import AdamW, AdamWConfig, cosine_lr, init_state, make_train_step
 
@@ -45,7 +48,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--vocab", type=int, default=512)
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt")
-    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--ckpt-every", type=int, default=20,
+                    help="steps between async saves; 0: no checkpoint, not even the final save")
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -57,6 +61,13 @@ def main(argv=None) -> dict:
         cfg = cfg.scaled_down(vocab=args.vocab)
     cfg = cfg.replace(attn_impl="torch")
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(data=1, model=1, device=dev)
+    with activation_sharding(mesh):
+        return _train(args, cfg, dev)
+
+
+def _train(args, cfg, dev) -> dict:
+    """The run itself, inside the one-rank mesh's ``activation_sharding``."""
     print(f"[train] arch={cfg.name} family={cfg.family} layers={cfg.num_layers} "
           f"d={cfg.d_model} vocab={cfg.vocab} device={dev}")
     print("[train] attn_impl='torch': the reference trains on its plain 'xla' attention, "
@@ -113,7 +124,8 @@ def main(argv=None) -> dict:
             saves.append(step)
     ckpt.wait()
     async_save = dict(ckpt.last_save) if saves else None
-    ckpt.save(start_step + len(losses), state)
+    if args.ckpt_every:
+        ckpt.save(start_step + len(losses), state)
     loader.close()
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.spec import assign, shard_input
 from repro_torch.models.transformer import ParamGroup, _positions, _stack, maybe_remat
 
 
@@ -101,6 +102,11 @@ class EncDec(nn.Module):
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, frames, tokens, self.cfg)[0]
 
+    def abstract_params(self) -> dict:
+        """The spec tree (``transformer.shard_params`` lays the parameters
+        out by it on a mesh)."""
+        return abstract_params(self.cfg)
+
 
 # ---------------------------------------------------------------------------
 # Layer bodies
@@ -146,7 +152,7 @@ def _dec_layer(lp: Any, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tens
 # ---------------------------------------------------------------------------
 def encode(params: Any, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames (B, S_enc, d) stub embeddings -> encoder states (B, S_enc, d)."""
-    x = frames.to(cfg.compute_dtype)
+    x = shard_input(frames, ("batch", "seq", "embed")).to(cfg.compute_dtype)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     layer = maybe_remat(_enc_layer, cfg)
     for lp in params["enc_layers"]:
@@ -216,8 +222,8 @@ def prefill(params: Any, frames: torch.Tensor, tokens: torch.Tensor, cfg: ModelC
                          f"{cache['xk'].shape[3]}")
     for i, lp in enumerate(params["dec_layers"]):
         xk, xv = _cross_kv(lp["xattn"], enc)
-        cache["xk"][i] = xk.to(cache["xk"].dtype)
-        cache["xv"][i] = xv.to(cache["xv"].dtype)
+        assign(cache["xk"][i], xk.to(cache["xk"].dtype))
+        assign(cache["xv"][i], xv.to(cache["xv"].dtype))
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     x, cache = _decoder_stack(params, x, cfg, positions, enc, cache=cache)

@@ -21,6 +21,11 @@ stacked tensors with the reference's keys and shapes: KV caches for
 attention layers (compressed ``ckv``/``kr`` for MLA), O(window) rings for
 sliding-window layers, O(1) state for SSD blocks. Prefill and decode update
 the cache's tensors in place (no copy of the cache per step) and return it.
+
+On a device mesh, ``shard_params`` makes every parameter a ``DTensor`` laid
+out by the reference's logical-axis rules, and the functions below run
+under ``spec.activation_sharding`` with the cache laid out by
+``serve.cache_shardings``; on a trivial mesh the model stays as it is.
 """
 from __future__ import annotations
 
@@ -39,7 +44,18 @@ from torch.utils.checkpoint import (
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.spec import ParamSpec, materialize_leaf
+from repro_torch.models.spec import (
+    P,
+    ParamSpec,
+    assign,
+    empty_as,
+    distribute,
+    is_trivial,
+    logical_to_pspec,
+    materialize_leaf,
+    shard_input,
+    to_placements,
+)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the decoder-only families
 
@@ -163,8 +179,57 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None):
         return forward(self, tokens, self.cfg, prefix_embeds=prefix_embeds)[0]
 
+    def abstract_params(self) -> dict:
+        return abstract_params(self.cfg)
+
 
 HybridLM = LM  # the name of the first slice, which ported the hybrid family
+
+
+# ---------------------------------------------------------------------------
+# Parameters on a device mesh
+# ---------------------------------------------------------------------------
+def _spec_leaves(tree: dict, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], ParamSpec]:
+    if isinstance(tree, ParamSpec):
+        return {prefix: tree}
+    out: dict[tuple[str, ...], ParamSpec] = {}
+    for name, sub in tree.items():
+        out.update(_spec_leaves(sub, prefix + (name,)))
+    return out
+
+
+def param_placements(model: nn.Module, mesh, rules: dict | None = None) -> dict[str, tuple]:
+    """The placements of each of ``model``'s parameters (by its
+    ``named_parameters`` name) under the rule table: for each layer's tensor
+    of a stacked leaf, the leaf's PartitionSpec without its layer entry."""
+    specs = _spec_leaves(model.abstract_params())
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        stacked = isinstance(getattr(model, parts[0]), nn.ModuleList)
+        s = specs[(parts[0], *parts[2:]) if stacked else tuple(parts)]
+        ps = tuple(logical_to_pspec(s.axes, mesh, rules, shape=s.shape))
+        ps += (None,) * (len(s.shape) - len(ps))
+        out[name] = to_placements(P(*ps[1:]) if stacked else P(*ps), mesh)
+    return out
+
+
+def shard_params(model: nn.Module, mesh, rules: dict | None = None) -> nn.Module:
+    """Make each parameter of ``model`` (each layer's tensor of a stacked
+    leaf) a DTensor laid out by ``spec.named_shardings``, in place: every
+    rank keeps its own box of the weights it holds whole (built from the
+    same seed, or loaded from the same checkpoint). On a trivial mesh the
+    model is returned as it is."""
+    if is_trivial(mesh):
+        return model
+    placements = param_placements(model, mesh, rules)
+    for name, p in list(model.named_parameters()):
+        owner, leaf = model, name.split(".")
+        for part in leaf[:-1]:
+            owner = owner[int(part)] if part.isdigit() else getattr(owner, part)
+        owner.register_parameter(leaf[-1], nn.Parameter(
+            distribute(p.detach(), mesh, placements[name]), requires_grad=p.requires_grad))
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +346,9 @@ def _embed(params: Any, tokens: torch.Tensor, cfg: ModelConfig,
     """Token embeddings, behind the modality prefix (B, P, d) if given."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
+        prefix = shard_input(prefix_embeds.to(device=x.device, dtype=x.dtype),
+                             ("batch", "res_seq", "embed"))
+        x = torch.cat([prefix, x], dim=1)
     return x
 
 
@@ -389,8 +456,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
 
 
 def _store_state(cache_ssm: dict, i: int, state: L.SSMState) -> None:
-    cache_ssm["conv"][i] = state.conv
-    cache_ssm["ssm"][i] = state.ssm
+    assign(cache_ssm["conv"][i], state.conv)
+    assign(cache_ssm["ssm"][i], state.ssm)
 
 
 def _layer_cache(c: dict, i: int, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -465,8 +532,8 @@ def _hybrid_prefill(params, x, cfg, positions, cache):
             gssm = L.SSMState(conv=cache["swa_ssm"]["conv"][li], ssm=cache["swa_ssm"]["ssm"][li])
             # a full-length temporary cache so that prefill also yields the
             # k/v stream; the trailing window lands in the ring for decode
-            tmp = (torch.empty(kv_hd, dtype=swa_k.dtype, device=x.device),
-                   torch.empty(kv_hd, dtype=swa_v.dtype, device=x.device))
+            tmp = (empty_as(kv_hd, swa_k.dtype, swa_k[li]),
+                   empty_as(kv_hd, swa_v.dtype, swa_v[li]))
             x, new_kv, new_state = _hybrid_layer(
                 params["layers"][li], x, cfg, positions, window=cfg.window,
                 kv_cache=tmp, cache_pos=0, ssm_state=gssm)
@@ -474,13 +541,13 @@ def _hybrid_prefill(params, x, cfg, positions, cache):
             # ring[slot(p)] = kv[p] for the last `take` positions; index_copy_
             # puts the slot axis where it is (the reference's numpy-style
             # mixed indexing moves it first, which torch would not)
-            swa_k[li].index_copy_(2, ring_slots, new_kv[0][:, :, s - take:, :])
-            swa_v[li].index_copy_(2, ring_slots, new_kv[1][:, :, s - take:, :])
+            L.index_copy(swa_k[li], 2, ring_slots, new_kv[0][:, :, s - take:, :])
+            L.index_copy(swa_v[li], 2, ring_slots, new_kv[1][:, :, s - take:, :])
     # as the reference labels the ring: slot i holds position s - take + i,
     # which is where the positions sit only when s <= w or w divides s
     slotpos = cache["slotpos"]
     slotpos.fill_(-1)
-    slotpos[:take] = torch.arange(s - take, s, dtype=torch.int32, device=x.device)
+    assign(slotpos[:take], torch.arange(s - take, s, dtype=torch.int32, device=x.device))
     return x, cache
 
 
@@ -515,8 +582,8 @@ def _ring_attention_decode(lp, h, cfg, positions, ring_k, ring_v, slotpos, pos: 
     w = ring_k.shape[2]
     q, k, v = L.qkv_project(lp["attn"], h, cfg, positions)
     slot = pos % w
-    ring_k[:, :, slot:slot + 1] = k.transpose(1, 2).to(ring_k.dtype)
-    ring_v[:, :, slot:slot + 1] = v.transpose(1, 2).to(ring_v.dtype)
+    L.write_cache(ring_k, k.transpose(1, 2), slot, 2)
+    L.write_cache(ring_v, v.transpose(1, 2), slot, 2)
     slotpos[slot] = pos
     valid = (slotpos >= 0) & (pos - slotpos < (cfg.window or w)) & (slotpos <= pos)
     out = L._masked_attention(q.transpose(1, 2), ring_k, ring_v, valid[None, :], cfg,

@@ -19,7 +19,16 @@ from repro_torch.serve.gateway import (
     WriteTicket,
 )
 from repro_torch.serve.rcache import GenerationTracker, ResponseCache, WindowPrefetcher
-from repro_torch.serve.step import generate, make_cache, make_decode_step, make_prefill_step
+from repro_torch.serve.step import (
+    abstract_cache,
+    cache_pspecs,
+    cache_shardings,
+    generate,
+    make_cache,
+    make_decode_step,
+    make_prefill_step,
+    shard_tree,
+)
 
 __all__ = [
     "DEFAULT_CLASSES",
@@ -39,8 +48,12 @@ __all__ = [
     "ResponseCache",
     "WindowPrefetcher",
     "WriteTicket",
+    "abstract_cache",
+    "cache_pspecs",
+    "cache_shardings",
     "generate",
     "make_cache",
     "make_decode_step",
     "make_prefill_step",
+    "shard_tree",
 ]

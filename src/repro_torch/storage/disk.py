@@ -211,11 +211,10 @@ class DiskStorage:
         self._rng = random.Random(seed)
         self._rr = 0
         self._lock = threading.Lock()
-        self._index: dict[RegionKey, list[_ManifestEntry]] = {}
         os.makedirs(root, exist_ok=True)
         self._manifest_path = os.path.join(root, "manifest.jsonl")
         self._manifest_lock = threading.Lock()
-        self._load_manifest()
+        self._index: dict[RegionKey, list[_ManifestEntry]] = self._read_manifest()
 
         self._workers: list[_IOWorker] = []
         self._groups: list[_IOGroup] = []
@@ -236,9 +235,10 @@ class DiskStorage:
             self._colocated_groups: dict[int, _IOGroup] = {}
 
     # -- manifest ------------------------------------------------------------------
-    def _load_manifest(self) -> None:
+    def _read_manifest(self) -> dict[RegionKey, list[_ManifestEntry]]:
+        index: dict[RegionKey, list[_ManifestEntry]] = {}
         if not os.path.exists(self._manifest_path):
-            return
+            return index
         with open(self._manifest_path) as f:
             for line in f:
                 line = line.strip()
@@ -254,7 +254,15 @@ class DiskStorage:
                     shape=tuple(d["shape"]),
                     dtype=d["dtype"],
                 )
-                self._index.setdefault(entry.key, []).append(entry)
+                index.setdefault(entry.key, []).append(entry)
+        return index
+
+    def reload(self) -> None:
+        """Re-read the manifest: the chunks that other processes have written
+        under this root since it was last read."""
+        index = self._read_manifest()
+        with self._lock:
+            self._index = index
 
     def _append_manifest(self, entries: list[_ManifestEntry]) -> None:
         with self._manifest_lock:

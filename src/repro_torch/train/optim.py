@@ -14,6 +14,12 @@ mirrors the reference's: a stack's moments are one stacked ``(L, ...)``
 float32 tensor, ``count`` an int32 scalar, so a checkpoint holds the
 reference's layout. ``update`` writes the new parameters and moments in
 place (the parameters are the model's) and returns them.
+
+On a device mesh the parameters, gradients and state are ``DTensor`` s,
+each laid out as ``train.step.state_shardings`` says (AdamW's moments with
+ZeRO-1's data shard on top of the parameter's); the same arithmetic runs on
+them, and the writes go through each tensor's local shard
+(``spec.assign``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from repro_torch.convert import LayerStack
+from repro_torch.models.spec import assign, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,23 +130,20 @@ class AdamW:
         b2c = 1.0 - torch.pow(c.b2, count.float())
 
         def upd(p, g, m, v):
-            g = g.float() * scale
+            """A stack's layers are stacked for the update, as its moments are."""
+            stacked = isinstance(p, LayerStack)
+            p32 = torch.stack([t.float() for t in p]) if stacked else p.float()
+            g = (torch.stack([t.float() for t in g]) if stacked else g.float()) * scale
             m_new = c.b1 * m.float() + (1 - c.b1) * g
             v_new = c.b2 * v.float() + (1 - c.b2) * g * g
-            p32 = p.float()
             step = (m_new / b1c) / (torch.sqrt(v_new / b2c) + c.eps) + c.weight_decay * p32
-            p.copy_((p32 - lr * step).to(p.dtype))
-            m.copy_(m_new.to(m.dtype))
-            v.copy_(v_new.to(v.dtype))
+            p_new = p32 - lr * step
+            for dst, src in zip(p, unstack(p_new)) if stacked else [(p, p_new)]:
+                assign(dst, src.to(dst.dtype))
+            assign(m, m_new.to(m.dtype))
+            assign(v, v_new.to(v.dtype))
 
-        def leaf(p, g, m, v):
-            if isinstance(p, LayerStack):  # the stacked moments' layer i
-                for i, (pi, gi) in enumerate(zip(p, g)):
-                    upd(pi, gi, m[i], v[i])
-            else:
-                upd(p, g, m, v)
-
-        _map(leaf, params, grads, state["m"], state["v"])
+        _map(upd, params, grads, state["m"], state["v"])
         return params, {"m": state["m"], "v": state["v"], "count": count}, {"grad_norm": norm}
 
 
@@ -196,17 +200,17 @@ class Adafactor:
                          / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None], min=1e-30)
                          ) * vc[..., None, :]
                 update = g * torch.rsqrt(torch.clamp(denom, min=1e-30))
-                v["vr"].copy_(vr)
-                v["vc"].copy_(vc)
+                assign(v["vr"], vr)
+                assign(v["vc"], vc)
             else:
                 vv = rho * v["v"] + (1 - rho) * g2
                 update = g * torch.rsqrt(torch.clamp(vv, min=1e-30))
-                v["v"].copy_(vv)
+                assign(v["v"], vv)
             # update clipping (RMS <= 1)
             rms = torch.sqrt(torch.mean(update * update) + 1e-30)
             p_new = p32 - lr * (update / torch.clamp(rms, min=1.0))
-            for dst, src in zip(p, p_new) if stacked else [(p, p_new)]:
-                dst.copy_(src.to(dst.dtype))
+            for dst, src in zip(p, unstack(p_new)) if stacked else [(p, p_new)]:
+                assign(dst, src.to(dst.dtype))
 
         _map(upd, params, grads, state["v"])
         return params, {"v": state["v"], "count": count}, {"grad_norm": norm}

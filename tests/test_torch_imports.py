@@ -34,6 +34,13 @@ TRAINING_SLICE = (
     "repro_torch.train.optim", "repro_torch.train.step", "repro_torch.data",
     "repro_torch.data.tokens", "repro_torch.data.loader", "repro_torch.launch.train",
 )
+# the multi-device machinery: meshes, cells, the dry run and its analysis,
+# gradient compression
+MESH_SLICE = (
+    "repro_torch.launch.mesh", "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+    "repro_torch.analysis", "repro_torch.analysis.roofline", "repro_torch.analysis.cost",
+    "repro_torch.train.compression",
+)
 # the near-data chains and the serving tier, with the storage modules it needs
 SERVING_SLICE = (
     "repro_torch.kernels.chains", "repro_torch.serve.fair", "repro_torch.serve.rcache",
@@ -62,7 +69,7 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                 "repro_torch.models.registry", "repro_torch.configs.registry",
                 "repro_torch.configs.hymba_1_5b", "repro_torch.serve.step",
                 "repro_torch.launch.serve", "repro_torch.convert", *RUNTIME_SLICE,
-                *SERVING_SLICE, *FAMILIES_SLICE, *TRAINING_SLICE):
+                *SERVING_SLICE, *FAMILIES_SLICE, *TRAINING_SLICE, *MESH_SLICE):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
@@ -93,7 +100,8 @@ def _imported_roots(path: Path):
 def test_no_source_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_lm_torch.py",
-        ROOT / "scripts" / "profile_train_torch.py",
+        ROOT / "scripts" / "profile_train_torch.py", ROOT / "scripts" / "probe_gloo_cuda.py",
+        ROOT / "scripts" / "sharded_cards.py",
         ROOT / "examples" / "serve_lm_torch.py", ROOT / "examples" / "wsi_pipeline_torch.py",
         ROOT / "examples" / "quickstart_torch.py", ROOT / "examples" / "serve_regions_torch.py",
         ROOT / "examples" / "train_lm_torch.py",
@@ -103,6 +111,27 @@ def test_no_source_of_the_port_imports_jax_or_repro():
         for f in files
     }
     assert {f: r for f, r in offenders.items() if r} == {}
+
+
+def test_the_dry_run_cli_imports_neither_jax_nor_repro():
+    """``python -m repro_torch.launch.dryrun --list`` in a fresh interpreter:
+    the cell table, and no JAX, no module of the JAX package and no
+    ``ml_dtypes`` among its imports; nor does it start a process group."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['dryrun', '--list']\n"
+        "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+        "import torch.distributed as dist\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes'))\n"
+        "print('BAD', bad, 'PG', dist.is_initialized())\n"
+        "sys.exit(1 if bad or dist.is_initialized() else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "qwen3-0.6b" in proc.stdout and "long_500k" in proc.stdout
+    assert "BAD [] PG False" in proc.stdout
 
 
 def test_relint_is_clean_on_the_port():

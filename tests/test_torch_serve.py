@@ -62,9 +62,15 @@ def test_generate_reports_stage_times_and_refuses_sampling(model):
     stats = {}
     generate(model, CFG, np.zeros((1, 4), np.int32), max_new=2, device="cpu", stats=stats)
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
-    with pytest.raises(NotImplementedError, match="temperature"):
-        generate(model, CFG, np.zeros((1, 4), np.int32), max_new=2, temperature=0.7,
-                 device="cpu")
+    # sampling at temperature > 0 is ported: without a generator it is
+    # greedy, as the reference without a key; with one it draws valid ids
+    greedy = generate(model, CFG, np.zeros((1, 4), np.int32), max_new=2, device="cpu")
+    no_gen = generate(model, CFG, np.zeros((1, 4), np.int32), max_new=2, temperature=0.7,
+                      device="cpu")
+    torch.testing.assert_close(no_gen, greedy)
+    drawn = generate(model, CFG, np.zeros((1, 4), np.int32), max_new=2, temperature=0.7,
+                     generator=torch.Generator().manual_seed(0), device="cpu")
+    assert drawn.shape == greedy.shape and 0 <= int(drawn.min()) <= int(drawn.max()) < CFG.vocab
     with pytest.raises(ValueError, match="model is on"):
         generate(model, CFG, np.zeros((1, 4), np.int32), device="meta")
 
@@ -76,3 +82,28 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert len(out["prefill_ms"]) == 2 and out["decode_tok_per_s"] > 0
     text = capsys.readouterr().out
     assert "[serve] prefill:" in text and "[serve] decode:" in text
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.5])
+def test_sampling_follows_the_reference_distribution(temperature):
+    """Sampling cannot repeat ``jax.random.categorical`` draw for draw; both
+    packages' 20,000 draws from the same 8-way logits are held against the
+    exact probabilities softmax(logits / T) with a chi-square test."""
+    from scipy.stats import chisquare
+
+    from repro.serve.step import _sample as ref_sample
+    from repro_torch.serve.step import _sample
+
+    n = 20_000
+    logits = np.array([[1.0, 0.5, -0.3, 2.0, 0.0, -1.0, 1.2, 0.3]], np.float32)
+    scaled = np.exp(logits[0].astype(np.float64) / temperature)
+    probs = scaled / scaled.sum()
+    port = _sample(torch.from_numpy(np.repeat(logits, n, 0)), temperature,
+                   torch.Generator().manual_seed(0))[:, 0].numpy()
+    key = jax.random.PRNGKey(0)
+    ref = np.asarray(jax.vmap(lambda i: ref_sample(jnp.asarray(logits), temperature, key, i))(
+        jnp.arange(n)))[:, 0, 0]
+    for draws in (port, ref):
+        counts = np.bincount(draws, minlength=8)
+        assert counts.sum() == n and len(counts) == 8
+        assert chisquare(counts, probs * n).pvalue > 1e-3
