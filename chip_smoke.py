@@ -15,6 +15,8 @@ Phases, each fatal on failure:
      GLCM's launch are also timed on the device alone (events queued behind
      a device sleep), CCL also on its worst cases, a serpentine through
      every tile and a full mask, each checked against its closed form;
+     GLCM at 256 bins takes the packed route (16-bit counters), timed
+     beside the device-memory route it replaced, on the same input;
   4. run the WSI path, ``analyze_tile`` at 4096^2 with the default config,
      with every launch counter set to 0 just before and read just after, and
      check it stage by stage against the same call with ``impl="torch"``;
@@ -35,7 +37,8 @@ Phases, each fatal on failure:
      its launch counts against its stages; 16 overlapping ROIs from 4
      client threads must coalesce into fewer window fetches; every repeat
      must be a derived-cache hit that launches nothing; GLCM at B = 1
-     (the chains' one window) is timed at 32 and 256 bins;
+     (the chains' one window) is timed at 32 and 256 bins (the packed
+     route, beside the device-memory one);
   5. hold the LM path's two kernels (flash attention, SSD scan) against
      their plain versions at Hymba-1.5B's prefill shapes, in bfloat16 and
      float32, and time them beside the plain versions and a library call;
@@ -53,7 +56,8 @@ Phases, each fatal on failure:
      depth in bf16 (one batch of 2 prompts of 2048 tokens, 32 new tokens),
      one model at a time, with the counters set to 0 just before each and
      read just after, checking each model's kernel launches; score with
-     deepseek-v2-lite-16b's ``forward`` (MLA on the kernel at D = 192); then
+     deepseek-v2-lite-16b's ``forward`` (MLA on the tensor-core kernel at
+     D = 192, in bf16; float32 stays on the CUDA-core instance); then
      hold six models end to end in float32 at full width, 2 layers deep,
      kernels against plain versions; print the meta-device parameter counts
      of the two models too large for one card;
@@ -165,9 +169,12 @@ FAMILY_E2E = {"qwen3-0.6b": "attention D = 128", "gemma-2b": "attention D = 256"
               "internvl2-1b": "the 256-slot patch prefix"}
 FAMILY_META_ONLY = ("nemotron-4-340b", "qwen3-moe-235b-a22b")  # beyond one card's 80 GB
 # the kernels line's family rows: each the measurement in its path's dtype
+# (deepseek's MLA in bf16 on the tensor cores, and in float32 on the CUDA
+# cores, as its float32 forward runs it)
 FAMILY_ROWS = {"flash_attention:qwen3": "flash_attention:bf16:qwen3",
                "flash_attention:gemma": "flash_attention:f32:gemma",
                "flash_attention:mla": "flash_attention:bf16:mla",
+               "flash_attention:mla_f32": "flash_attention:f32:mla",
                "ssd_scan:mamba2": "ssd_scan:bf16:mamba2"}
 # Phase 8, the encoder-decoder family: seamless-m4t-large-v2 served at full
 # width and depth in bf16 through serve.generate, one batch of two
@@ -489,9 +496,14 @@ def main() -> None:
         bound=bound(bins.numel() * 4 + (k_g.numel() + k_h.numel()) * 4, 3 * bins.numel()),
     )
     del pair_idx
-    # the device-memory variant (NB > 240), on the same ROIs at 256 bins
+    # the packed route (241 <= NB <= 340), on the same ROIs at 256 bins
     wide = ref.quantize_ref(rois, GLCM_WIDE_BINS)
+    wide_route = glcm_mod.route(GLCM_WIDE_BINS, wide.shape[-1])
+    before = glcm_mod.route_launches["packed"]
     wide_g, wide_h = ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="cuda")
+    if wide_route != "packed" or glcm_mod.route_launches["packed"] != before + 1:
+        fail(f"glcm at {GLCM_WIDE_BINS} bins on {tuple(wide.shape)} took the {wide_route} "
+             f"route, not the packed one")
     wp_g, wp_h = ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch")
     exact(f"glcm at {GLCM_WIDE_BINS} bins", wide_g, wp_g)
     exact(f"glcm histogram at {GLCM_WIDE_BINS} bins", wide_h, wp_h)
@@ -500,10 +512,12 @@ def main() -> None:
         + wide[:, :, :-1].long() * GLCM_WIDE_BINS + wide[:, :, 1:].long()
     ).reshape(-1)
     glcm_wide = dict(
-        kernel=f"glcm:nb{GLCM_WIDE_BINS}", max_abs_err=0.0,
+        kernel=f"glcm:nb{GLCM_WIDE_BINS}", shape=list(wide.shape), route=wide_route,
+        max_abs_err=0.0,
         kernel_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="cuda"), 20),
         device_ms=device_ms(torch, lambda ev: glcm_mod.glcm_cuda(
             wide, GLCM_WIDE_BINS, events=ev), (), 20)["device"],
+        global_device_ms=glcm_global_device_ms(torch, wide, GLCM_WIDE_BINS, (wp_g, wp_h), 20),
         plain_ms=time_ms(lambda: ops.glcm_histogram(wide, GLCM_WIDE_BINS, impl="torch"), 10),
         library_ms=time_ms(
             lambda: torch.bincount(wide_idx, minlength=b * GLCM_WIDE_BINS**2), 10),
@@ -643,6 +657,8 @@ def main() -> None:
         "flash_attention:gemma": ("flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:104"),
         "flash_attention:mla": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
+        "flash_attention:mla_f32": ("flash_attention.cu",
+                                    "src/repro/kernels/flash_attention.py:104"),
         "ssd_scan:mamba2": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:88"),
         # the encoder-decoder's path (phase 8): its encoder, not causal, and
         # its decoder's prefill
@@ -1067,7 +1083,12 @@ def near_data_phases(torch, dev, sync, rgb_np: np.ndarray) -> np.ndarray:
                 if stage.name == "glcm":  # and the counts behind the features, exactly
                     nb = params["num_bins"]
                     bins = ref.quantize_ref(x.to(torch.float32), nb)[None].contiguous()
+                    which = glcm_mod.route(nb, bins.shape[-1])
+                    before = glcm_mod.route_launches[which]
                     kg, kh = ops.glcm_histogram(bins, nb)
+                    if which != ("shared" if nb <= 240 else "packed") or (
+                            glcm_mod.route_launches[which] != before + 1):
+                        fail(f"{chain.name}: GLCM at {nb} bins took the {which} route")
                     pg, ph = plain_glcm(bins, nb)
                     if not (torch.equal(kg, pg) and torch.equal(kh, ph)):
                         fail(f"{chain.name}: GLCM counts at B = 1, {nb} bins, differ from "
@@ -1286,13 +1307,16 @@ def glcm_b1_records(torch, dev, time_ms, bound, hema_np: np.ndarray) -> list[dic
 
     hema = torch.as_tensor(hema_np, device=dev)
     glcm_b1 = []
+    pick_rows = {"shared": glcm_mod.band_rows, "packed": glcm_mod.packed_rows}
     for nb in GLCM_B1_BINS:
         bins = ref.quantize_ref(hema, nb)[None].contiguous()
-        shared = (nb * nb + nb) * 4 <= glcm_mod.MAX_SHARED_BYTES
+        which = glcm_mod.route(nb, w)
+        if which != ("shared" if nb <= 240 else "packed"):
+            fail(f"glcm at B = 1, {nb} bins, takes the {which} route")
         idx = (bins[:, :, :-1].long() * nb + bins[:, :, 1:].long()).reshape(-1)
         rec = dict(
-            kernel=f"glcm:b1:nb{nb}", shape=list(bins.shape), max_abs_err=0.0,
-            rows=glcm_mod.band_rows(1, h, w, glcm_mod._num_sms(dev)) if shared else None,
+            kernel=f"glcm:b1:nb{nb}", shape=list(bins.shape), route=which, max_abs_err=0.0,
+            rows=pick_rows[which](1, h, w, glcm_mod._num_sms(dev)),
             kernel_ms=time_ms(lambda: ops.glcm_histogram(bins, nb, impl="cuda"), 20),
             device_ms=device_ms(torch, lambda ev: glcm_mod.glcm_cuda(bins, nb, events=ev),
                                 (), 20)["device"],
@@ -1300,12 +1324,42 @@ def glcm_b1_records(torch, dev, time_ms, bound, hema_np: np.ndarray) -> list[dic
             library_ms=time_ms(lambda: torch.bincount(idx, minlength=nb * nb), 10),
             bound_ms=bound(bins.numel() * 4 + (nb * nb + nb) * 4, 3 * bins.numel())[0],
         )
-        if shared:  # the parent's launch: one block counts the whole window
+        if which == "shared":  # one block counts the whole window
             rec["one_block_device_ms"] = device_ms(
                 torch, lambda ev: glcm_mod.glcm_cuda(bins, nb, rows=h, events=ev), (), 5)["device"]
+        else:  # the route it replaced, counts held to the packed route's
+            rec["global_device_ms"] = glcm_global_device_ms(
+                torch, bins, nb, glcm_mod.glcm_cuda(bins, nb), 5)
         glcm_b1.append(rec)
         del bins, idx
     return glcm_b1
+
+
+def glcm_global_device_ms(torch, bins, nb: int, want: tuple, reps: int) -> float:
+    """Device time of GLCM's device-memory route (``rt_glcm_global``: float32
+    atomics straight into device memory, the route of NB > 340 and, before
+    the packed kernel, of NB > 240) on ``bins``, called through the kernel
+    library for the comparison, so no launch counter moves; its counts must
+    equal ``want`` (glcm, hist) bit for bit."""
+    from repro_torch.kernels import _build
+
+    b, h, w = bins.shape
+    g = torch.empty((b, nb, nb), dtype=torch.float32, device=bins.device)
+    hist = torch.empty((b, nb), dtype=torch.float32, device=bins.device)
+
+    def call(events: list) -> None:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events.extend(marks)
+        marks[0].record()
+        code = _build.lib().rt_glcm_global(bins.data_ptr(), g.data_ptr(), hist.data_ptr(),
+                                           b, h, w, nb, _build.stream(bins))
+        marks[1].record()
+        _build.check(code, "glcm (device-memory route)")
+
+    ms = device_ms(torch, call, (), reps)["device"]
+    if not (torch.equal(g, want[0]) and torch.equal(hist, want[1])):
+        fail(f"glcm's device-memory route at {nb} bins differs from the packed route")
+    return ms
 
 
 def serpentine(h: int, w: int) -> np.ndarray:
@@ -1742,7 +1796,7 @@ def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
 
     # deepseek scores through LM.forward: MLA expands its keys and values and
-    # attends on the kernel at D = 192, a launch a layer
+    # attends on the tensor-core kernel at D = 192, a launch a layer
     ds = get_config("deepseek-v2-lite-16b")
     model = LM(ds, device=dev, seed=0)
     prompt = torch.as_tensor(np.random.default_rng(2).integers(0, ds.vocab, (b, t)),
@@ -1760,9 +1814,9 @@ def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
     print(json.dumps({"lm_family": ds.name, "path": "LM.forward (scoring)", "shape": [b, t],
                       "wall_s": score_s, "peak_bytes": torch.cuda.max_memory_allocated(),
                       "launches": got, "nvidia_smi": nvidia_smi()}), flush=True)
-    if got["flash_attention"] != {"tensor_core": 0, "cuda_core": ds.num_layers}:
+    if got["flash_attention"] != {"tensor_core": ds.num_layers, "cuda_core": 0}:
         fail(f"deepseek scoring launched attention instances {got['flash_attention']}, not "
-             f"the CUDA-core kernel at D = {d192} once a layer")
+             f"the tensor-core kernel at D = {d192} once a layer")
     if tuple(logits.shape) != (b, t, ds.vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"deepseek scoring logits: shape {tuple(logits.shape)} or non-finite values")
     del model, logits
@@ -1786,7 +1840,7 @@ def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
             reset_counts()
             with torch.no_grad():
                 fk = T.forward(model, prompt, cfg32)[0]
-                fwd = counts()
+                fwd = launches[f"{arch}:forward_f32"] = counts()
                 fp = T.forward(model, prompt, cfg32.replace(attn_impl="torch"))[0]
             ferr = (fk - fp).abs().max().item()
             print(f"{label}: forward logits max |err| {ferr:.3g} (tolerance {E2E_LOGIT_TOL}), "
@@ -1827,6 +1881,9 @@ def lm_families_phases(torch, dev, time_ms, sync) -> tuple[dict, dict]:
                                       "launch.serve.main --arch gemma-2b"),
             "flash_attention:mla": ("flash_attention", f"{ds.name}:forward",
                                     f"LM.forward, {ds.name}, bf16, full depth"),
+            "flash_attention:mla_f32": ("flash_attention", f"{ds.name}:forward_f32",
+                                        f"forward, {ds.name}, float32, "
+                                        f"{FAMILY_E2E_LAYERS} layers"),
             "ssd_scan:mamba2": ("ssd_scan", "mamba2-2.7b",
                                 "launch.serve.main --arch mamba2-2.7b")}.items():
         rows[row] = sum(launches[run][kernel].values())

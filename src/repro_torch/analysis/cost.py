@@ -23,7 +23,14 @@ Reported, all per rank, under the keys of ``HloCost.as_dict``:
                            ``_c10d_functional`` collective, with a
                            breakdown and op counts per category (the HLO
                            names: all-reduce, all-gather, reduce-scatter,
-                           all-to-all, collective-permute);
+                           all-to-all, collective-permute). DTensor's
+                           Shard(i) -> Shard(j) redistribution is an
+                           all-to-all; on a CPU mesh DTensor issues it as
+                           an all-gather and a chunk (gloo has none), so the
+                           counter counts it as the all-to-all a card's NCCL
+                           runs: one, of the input's bytes. The bytes follow
+                           the tensors' dtype: a bf16 partial sum moves in
+                           bf16, where XLA's CPU backend carries it in f32;
   * ``while_trip_counts`` is always empty (nothing is a loop op here).
 """
 from __future__ import annotations
@@ -32,6 +39,7 @@ import dataclasses
 from collections import defaultdict
 
 import torch
+import torch.distributed.tensor.placement_types as _placement_types
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -45,7 +53,9 @@ _COLLECTIVES = {
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "broadcast": "collective-permute",
+    "shard_dim_alltoall": "all-to-all",  # DTensor's own op, off a CPU mesh
 }
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
 # ops that move no memory: views, allocations, metadata and the collectives'
 # bookkeeping
 _NO_BYTES = {
@@ -106,6 +116,30 @@ class CostCounter(TorchDispatchMode):
     def __init__(self) -> None:
         super().__init__()
         self.cost = Cost()
+        self._in_alltoall = False
+        self._shard_dim_alltoall = None
+
+    def __enter__(self):
+        self._shard_dim_alltoall = _placement_types.shard_dim_alltoall
+        _placement_types.shard_dim_alltoall = self._alltoall
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _placement_types.shard_dim_alltoall = self._shard_dim_alltoall
+        return super().__exit__(*exc)
+
+    def _alltoall(self, local, gather_dim, shard_dim, mesh, mesh_dim):
+        """DTensor's all-to-all. On a CPU mesh it runs as an all-gather and
+        a chunk; that is counted as one all-to-all of ``local``'s bytes, and
+        the stand-in's own ops not at all."""
+        if mesh.device_type != "cpu":
+            return self._shard_dim_alltoall(local, gather_dim, shard_dim, mesh, mesh_dim)
+        self._add_collective("all-to-all", _nbytes(local))
+        self._in_alltoall = True
+        try:
+            return self._shard_dim_alltoall(local, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            self._in_alltoall = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -119,7 +153,15 @@ class CostCounter(TorchDispatchMode):
         self._count(func, args, tensors, out)
         return out
 
+    def _add_collective(self, kind: str, moved: int) -> None:
+        c = self.cost
+        c.collective_bytes += moved
+        c.collectives[kind] += moved
+        c.collective_counts[kind] += 1
+
     def _count(self, func, args, tensors, out) -> None:
+        if self._in_alltoall:
+            return
         c = self.cost
         name = func.overloadpacket.__name__
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
@@ -127,14 +169,11 @@ class CostCounter(TorchDispatchMode):
         if dot is not None:
             c.flops += dot[0]
             c.dot_flops_by_shape[dot[1]] += dot[0]
-        if func.namespace == "_c10d_functional" and name in _COLLECTIVES:
-            kind = _COLLECTIVES[name]
+        if func.namespace in _COLLECTIVE_NAMESPACES and name in _COLLECTIVES:
             moved = max(sum(map(_nbytes, tensors)), sum(map(_nbytes, outs)))
-            c.collective_bytes += moved
-            c.collectives[kind] += moved
-            c.collective_counts[kind] += 1
+            self._add_collective(_COLLECTIVES[name], moved)
             return
-        if name in _NO_BYTES or func.namespace == "_c10d_functional":
+        if name in _NO_BYTES or func.namespace in _COLLECTIVE_NAMESPACES:
             return
         seen, moved = set(), 0
         for t in [*tensors, *outs]:

@@ -1,10 +1,9 @@
 // Online-softmax (flash) attention for Hopper (sm_90a): GQA, causal mask,
 // sliding window, query offset and ragged key length. Two instances:
-//   * the tensor-core instance (bf16 at D = 64 and 128), in the
+//   * the tensor-core instance (bf16 at D = 64, 128, 192 and 256), in the
 //     FlashAttention-2 layout on mma.sync m16n8k16 bf16 (namespace tc below);
-//   * the CUDA-core instance (float32 at any D, bf16 at D in {16, 24, 32, 192,
-//     256}), f32 arithmetic throughout, which holds the float32 tolerance of
-//     3e-4.
+//   * the CUDA-core instance (float32 at any D, bf16 at D in {16, 24, 32}),
+//     f32 arithmetic throughout, which holds the float32 tolerance of 3e-4.
 // The wrapper (kernels/flash_attention.py::instance) picks one by dtype and D.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas, which
@@ -39,6 +38,8 @@
 // window) are never loaded: the loop runs only over the live tile range, the
 // Pallas kernel's block skip.
 #include <math.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -180,19 +181,26 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, in
     case 16: return launch<T, 16>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
     case 24: return launch<T, 24>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
     case 32: return launch<T, 32>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-    case 192: return launch<T, 192>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-    case 256: return launch<T, 256>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 from 64 up: the tensor cores
+    switch (d) {
+      case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 192: return launch<T, 192>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 256: return launch<T, 256>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (b, hq, tq, d), k and v (b, hkv, tk, d), out like q; all contiguous, float32
 // (bf16 = 0) or bfloat16 (bf16 = 1). window < 0 means no window. The caller
-// checks d in {16, 24, 32, 64, 128, 192, 256} and hq % hkv == 0.
+// checks d in {16, 24, 32, 64, 128, 192, 256} (bf16: {16, 24, 32}; bf16 from
+// D = 64 up is the tensor-core instance's) and hq % hkv == 0.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                   int hq, int hkv, int tq, int tk, int d, int bf16, float scale,
                                   int causal, int window, int q_offset, cudaStream_t stream) {
@@ -205,14 +213,16 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core instance: bf16 at D = 64 and 128, FlashAttention-2 layout.
+// Tensor-core instance: bf16 at D = 64, 128, 192 and 256, FlashAttention-2
+// layout.
 //
 // Design: grid (B*Hq, ceil(Tq/64)); a block of 4 warps owns 64 queries of one
-// head, 16 rows a warp. Each warp keeps its Q rows in registers as m16n8k16 A
-// fragments for the whole block. K and V tiles of 64 keys stay bf16 in shared
-// memory, double-buffered with cp.async (zero-filled past Tk), each row padded
-// by 16 bytes so that the 8 rows an ldmatrix phase reads fall in 8 different
-// bank groups. Per tile a warp computes S = Q K^T (16 x 64, f32 accumulators)
+// head, 16 rows a warp. At D <= 128 each warp keeps its Q rows in registers as
+// m16n8k16 A fragments for the whole block. K and V tiles of kBlockK keys stay
+// bf16 in shared memory, double-buffered with cp.async (zero-filled past Tk),
+// each row padded by 16 bytes so that the 8 rows an ldmatrix phase reads fall
+// in 8 different bank groups. Per tile a warp computes S = Q K^T (16 x kBlockK,
+// f32 accumulators)
 // with ldmatrix + mma.sync, masks S only where the tile straddles an edge (the
 // causal diagonal, the window's lower edge, or a ragged Tk) for one of its
 // rows, and updates the online softmax in the log2 domain: the running max and
@@ -227,6 +237,19 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
 // instance above; the q-blocks are launched last row first, so that under the
 // causal mask the blocks with the most live tiles start first.
 //
+// D = 192 and 256 (MLA's scoring on V padded to 192, gemma's heads): what
+// bounds them is registers. At D = 256 a warp's 16 x 256 f32 O accumulators
+// take 128 registers a thread; Q's A fragments would take 64 more and a 16 x
+// 64 score tile 32. So there Q moves to shared memory (64 x (D + 8) bf16,
+// 25.6 KB at 192, 33.8 KB at 256, loaded with the first K/V tile by cp.async
+// and zero-filled past Tq), and each k-step reads its A fragments with one
+// ldmatrix.x4; and a staged tile holds 32 keys, not 64, which halves S to 16
+// registers. Shared memory is then 76.8 KB a block at D = 192 and 101.4 KB at
+// D = 256 (K and V, two stages, and Q): two blocks an SM, 8 warps, with up to
+// 255 registers a thread (2 x 128 x 255 <= 65,536). At 64 keys a tile D = 256
+// would take 169 KB and one block an SM. V is used as it comes: MLA's zero
+// columns 128..191 are multiplied like any other.
+//
 // A block could serve all Hq/Hkv query heads of one KV head and use each
 // staged K/V tile 5 times at Hymba's 25/5, but 5 heads' O accumulators, Q
 // fragments and scores do not fit one thread's 255 registers at 4 warps; the
@@ -237,30 +260,38 @@ namespace tc {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockQ = 16 * kWarps;  // queries per block
-constexpr int kBlockK = 64;           // keys per staged tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int kRow = D + 8;              // bf16 per staged row (16 bytes of padding)
-  static constexpr int kElems = kBlockK * kRow;   // bf16 per staged tile
-  static constexpr int kSmemBytes = 2 * 2 * kElems * 2;  // K and V, two stages
-  static_assert(D % 16 == 0 && (D / 16) % 2 == 0, "tensor-core head_dim must be 64 or 128");
+  static constexpr bool kQShared = D > 128;          // Q in shared memory, not registers
+  static constexpr int kBlockK = D > 128 ? 32 : 64;  // keys per staged tile
+  static constexpr int kRow = D + 8;                 // bf16 per staged row (16 bytes of padding)
+  static constexpr int kElems = kBlockK * kRow;      // bf16 per staged tile
+  static constexpr int kQElems = kQShared ? kBlockQ * kRow : 0;
+  static constexpr int kSmemBytes = (2 * 2 * kElems + kQElems) * 2;  // K, V two stages; Q
+  // blocks an SM: at D = 64 four fit once a thread keeps to 128 registers
+  static constexpr int kMinBlocks = D == 64 ? 4 : 2;
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256,
+                "tensor-core head_dim must be 64, 128, 192 or 256");
+  static_assert(kMinBlocks * kSmemBytes <= 228 * 1024, "shared memory of the blocks an SM");
 };
 
-// At D = 64 four blocks fit an SM once a thread keeps to 128 registers.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
+__global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
 flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int hq,
                    int hkv, int tq, int tk, float scale_log2, int causal, int window,
                    int q_offset) {
   using T = Tile<D>;
-  constexpr int kSteps = D / 16;  // k-steps of Q K^T
-  constexpr int kDTiles = D / 8;  // n-tiles of P V
+  constexpr int kBlockK = T::kBlockK;
+  constexpr int kSteps = D / 16;       // k-steps of Q K^T
+  constexpr int kDTiles = D / 8;       // n-tiles of P V
+  constexpr int kNTiles = kBlockK / 8;  // n-tiles of S
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kBlockK][kRow]
   __nv_bfloat16* vs = ks + 2 * T::kElems;
+  __nv_bfloat16* qs = vs + 2 * T::kElems;  // [kBlockQ][kRow] where kQShared
 
   const int bh = blockIdx.x;  // batch * Hq + query head
   const int kv_row = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
@@ -270,9 +301,9 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int qw = q0 + warp * 16;          // the warp's first query row
 
   // Q rows qw+g and qw+g+8 as A fragments: {row g, row g+8} x {cols 2t4, 2t4+8}.
-  unsigned qf[kSteps][4];
-  {
-    const __nv_bfloat16* qb = q + (size_t)bh * tq * D;
+  const __nv_bfloat16* qb = q + (size_t)bh * tq * D;
+  unsigned qf[T::kQShared ? 1 : kSteps][4];
+  if constexpr (!T::kQShared) {
     const bool in0 = qw + g < tq, in1 = qw + g + 8 < tq;
     const unsigned* r0 = reinterpret_cast<const unsigned*>(qb + (size_t)(in0 ? qw + g : 0) * D);
     const unsigned* r1 = reinterpret_cast<const unsigned*>(qb + (size_t)(in1 ? qw + g + 8 : 0) * D);
@@ -300,6 +331,17 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
   const __nv_bfloat16* kb = k + (size_t)kv_row * tk * D;
   const __nv_bfloat16* vb = v + (size_t)kv_row * tk * D;
+  // The block's 64 Q rows into shared memory (zero-filled past Tq).
+  auto load_q = [&]() {
+    constexpr int kChunks = D / 8;
+#pragma unroll
+    for (int e = tid; e < kBlockQ * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * 8;
+      const bool in = q0 + r < tq;
+      cp_async16(smem_addr(qs + r * T::kRow + c), qb + (size_t)(in ? q0 + r : 0) * D + c,
+                 in ? 16 : 0);
+    }
+  };
   auto load_tile = [&](int kt, int stage) {
     constexpr int kChunks = D / 8;  // 16-byte chunks per row
     const int k0 = kt * kBlockK;
@@ -321,7 +363,10 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (log2 domain)
   float l[2] = {0.f, 0.f};              // this thread's part of the running sum
 
-  if (kt_begin < kt_end) load_tile(kt_begin, 0);
+  if (kt_begin < kt_end) {
+    if constexpr (T::kQShared) load_q();  // lands with the first tile
+    load_tile(kt_begin, 0);
+  }
   cp_async_commit();
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int stage = (kt - kt_begin) & 1;
@@ -330,20 +375,34 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     cp_async_wait_one();  // this tile has landed; the next may be in flight
     __syncthreads();
 
-    // S = Q K^T: 8 n-tiles of 8 keys; one ldmatrix.x4 gives two k-steps' B.
+    // S = Q K^T: n-tiles of 8 keys; one ldmatrix.x4 gives two k-steps' B (and,
+    // with Q in shared memory, one k-step's A: lanes 0-15 address rows 0-15 at
+    // the step's column 0, lanes 16-31 the same rows at column 8).
     const __nv_bfloat16* kt_s = ks + stage * T::kElems;
-    float s[8][4];
+    float s[kNTiles][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < kNTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int st = 0; st < kSteps; st += 2) {
+      unsigned qa[2][4];  // the A fragments of k-steps st and st + 1
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (T::kQShared) {
+          ldsm_x4(smem_addr(qs + (warp * 16 + (lane & 15)) * T::kRow + (st + h) * 16 +
+                            (lane >> 4) * 8),
+                  qa[h][0], qa[h][1], qa[h][2], qa[h][3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[h][i] = qf[st + h][i];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
         unsigned b0, b1, b2, b3;
         ldsm_x4(smem_addr(kt_s + (8 * j + (lane & 7)) * T::kRow + st * 16 + (lane >> 3) * 8),
                 b0, b1, b2, b3);
-        mma_bf16(s[j], qf[st], b0, b1);
-        mma_bf16(s[j], qf[st + 1], b2, b3);
+        mma_bf16(s[j], qa[0], b0, b1);
+        mma_bf16(s[j], qa[1], b2, b3);
       }
     }
 
@@ -352,7 +411,7 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     const bool edge = k0 + kBlockK > tk || (causal && k0 + kBlockK - 1 > w_lo) ||
                       (window >= 0 && w_hi - k0 >= window);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNTiles; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale_log2;
@@ -374,7 +433,7 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      for (int j = 0; j < kNTiles; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
@@ -384,7 +443,7 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     }
     float psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNTiles; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[j][e] - m_use[e >> 1]);
@@ -462,7 +521,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int hq
 
 // The tensor-core instance: q (b, hq, tq, d), k and v (b, hkv, tk, d), out
 // like q; all contiguous bfloat16 and 16-byte aligned. The caller checks d in
-// {64, 128}, hq % hkv == 0 and ceil(tq / 64) < 65536.
+// {64, 128, 192, 256}, hq % hkv == 0 and ceil(tq / 64) < 65536.
 extern "C" int rt_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
                                      int b, int hq, int hkv, int tq, int tk, int d, float scale,
                                      int causal, int window, int q_offset, cudaStream_t stream) {
@@ -473,6 +532,12 @@ extern "C" int rt_flash_attention_tc(const void* q, const void* k, const void* v
                             stream);
     case 128:
       return tc::launch<128>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset,
+                             stream);
+    case 192:
+      return tc::launch<192>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset,
+                             stream);
+    case 256:
+      return tc::launch<256>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset,
                              stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -4,10 +4,12 @@ Replaces ``repro.kernels.flash_attention.flash_attention_pallas``. The plain
 version is ``ref.attention_ref``; ``ops.attention`` picks between them.
 
 The source holds two instances of the kernel, and :func:`instance` picks one
-by dtype and head_dim: bf16 at D = 64 or 128 runs on the tensor cores
-(``mma.sync`` in bf16, K and V staged as bf16), everything else on the CUDA
-cores in float32 (which holds float32's 3e-4; TF32 would not), among them
-D = 192 (nemotron, MLA's scoring path) and 256 (gemma) in either dtype.
+by dtype and head_dim: bf16 at D = 64, 128, 192 (nemotron, MLA's scoring
+path) or 256 runs on the tensor cores (``mma.sync`` in bf16, K and V staged
+as bf16; at 192 and 256 Q is read from shared memory and a staged tile holds
+32 keys, as registers bound those widths), float32 at every D and bf16 at
+D <= 32 on the CUDA cores in float32 (which holds float32's 3e-4; TF32
+would not).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ INSTANCES = ("tensor_core", "cuda_core")
 instance_launches = dict.fromkeys(INSTANCES, 0)  # of those, launches per instance
 
 HEAD_DIMS = (16, 24, 32, 64, 128, 192, 256)  # the CUDA-core kernel's template instances
-TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's (bf16 only)
+TC_HEAD_DIMS = (64, 128, 192, 256)  # the tensor-core kernel's (bf16 only)
 DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_Q = 64  # queries per block in both instances
 MAX_Q_BLOCKS = 65535  # the grid's y extent

@@ -154,6 +154,47 @@ def test_glcm_band_counts_sum_to_the_whole_tile(b, h, w, nb, rows):
     assert torch.equal(hist.sum(dim=1), ref.histogram_ref(bins, nb))
 
 
+@pytest.mark.parametrize("nb,w,want", [
+    (2, 64, "shared"), (240, 4096, "shared"), (240, 100_000, "shared"),
+    (241, 64, "packed"), (256, 4096, "packed"), (340, 4096, "packed"),
+    (256, 65_535, "packed"), (256, 65_536, "global"), (341, 4096, "global"),
+    (1000, 64, "global"),
+])
+def test_glcm_route(nb, w, want):
+    """int32 counters in shared memory up to 240 bins, 16-bit ones up to 340
+    where a row fits a band, device memory beyond; each route's counters fit
+    one block's shared memory."""
+    assert glcm_mod.route(nb, w) == want
+    per_counter = {"shared": 4, "packed": 2}.get(want)
+    if per_counter:
+        assert (nb * nb + nb) * per_counter <= glcm_mod.MAX_SHARED_BYTES
+    if want != "shared":
+        assert (nb * nb + nb) * 4 > glcm_mod.MAX_SHARED_BYTES
+
+
+def test_glcm_packed_rows_never_fill_a_16_bit_counter():
+    """A packed band holds at most 65,535 pixels, so no counter of it passes
+    65,535: the chains' 4096^2 window in 373 bands of 11 rows (at most 15
+    rows fit, 274 bands, whose third wave of 132 would hold 10), the WSI
+    path's 64^2 ROIs one band a tile, and bands that fill the card
+    otherwise, in as few waves as the tallest bands that fit."""
+    sms = 132
+    rows = glcm_mod.packed_rows(1, 4096, 4096, sms)
+    assert rows == 11 and -(-4096 // rows) == 373
+    assert glcm_mod.packed_rows(512, 64, 64, sms) == 64
+    assert glcm_mod.packed_rows(1, 3, 65_535, sms) == 1
+    for b, h, w in ((1, 4096, 4096), (1, 4096, 4095), (1, 4095, 4096), (3, 1000, 37),
+                    (512, 64, 64), (4, 64, 64), (1, 16, 65_535), (1, 400, 40_000),
+                    (1, 2**24, 1), (2, 255, 257), (1, 0, 64), (1, 64, 0), (2, 4096, 4096)):
+        rows = glcm_mod.packed_rows(b, h, w, sms)
+        assert rows >= 1 and rows * w <= glcm_mod.MAX_BAND_PIXELS
+        assert -(-h // rows) <= glcm_mod.MAX_GRID_Y
+        # no more waves of one block an SM than the tallest bands that fit
+        tallest = max(1, min(glcm_mod.band_rows(b, h, w, sms), 65_535 // max(w, 1)))
+        waves = -(-b * -(-h // tallest) // sms)
+        assert rows <= tallest and -(-b * -(-h // rows) // sms) == waves
+
+
 def test_glcm_band_rows():
     """One block a tile where the batch fills the card (the WSI path's 512
     ROIs) or a tile exceeds 2^24 pixels; bands that fill it otherwise."""

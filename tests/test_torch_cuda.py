@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs.wsi import WSIConfig
-from repro_torch.kernels import ccl, flash_attention, ops, ref, ssd_scan
+from repro_torch.kernels import ccl, flash_attention, glcm, ops, ref, ssd_scan
 from repro_torch.kernels.glcm import glcm_cuda
 from repro_torch.models import HybridLM, ModelConfig
 from repro_torch.pipeline import analyze_tile, make_tile
@@ -259,8 +259,9 @@ def test_ccl_cuda_counts_one_call_three_launches_and_times_phases(dev):
     assert torch.equal(got, torch.zeros_like(got))
 
 
-# 8 copies of the counters at NB = 32 (the WSI path's), one at NB = 85
-@pytest.mark.parametrize("nb", [32, 85])
+# 8 copies of the counters at NB = 32 (the WSI path's), one at NB = 85, 16-bit
+# counters at NB = 256
+@pytest.mark.parametrize("nb", [32, 85, 256])
 @pytest.mark.parametrize("b,h,w", [(512, 64, 64), (3, 20, 21), (2, 7, 1)])
 def test_glcm_cuda_one_bin_everywhere(dev, nb, b, h, w):
     """Every bin the same: every lane of every warp hits one counter."""
@@ -274,7 +275,7 @@ def test_glcm_cuda_one_bin_everywhere(dev, nb, b, h, w):
     assert torch.equal(g, want_g)
 
 
-@pytest.mark.parametrize("nb", [32, 85])
+@pytest.mark.parametrize("nb", [32, 85, 256])
 @pytest.mark.parametrize("b,h,w", [(512, 64, 64), (6, 16, 32), (7, 33, 47), (4, 20, 21),
                                    (5, 50, 1), (3, 9, 2)])
 def test_glcm_cuda_out_of_range_bins_and_widths(dev, nb, b, h, w):
@@ -305,7 +306,8 @@ def test_glcm_cuda_unaligned_batch_and_events(dev):
 
 @pytest.mark.parametrize("b,h,w,nb", [(2, 16, 16, 8), (4, 24, 32, 16), (512, 64, 64, 32),
                                       (3, 20, 20, 240), (3, 20, 20, 241), (5, 33, 47, 256),
-                                      (512, 64, 64, 256)])
+                                      (512, 64, 64, 256), (7, 33, 47, 300), (3, 20, 20, 340),
+                                      (3, 20, 20, 341)])
 def test_glcm_cuda_exact(dev, b, h, w, nb):
     rng = np.random.default_rng(b * nb)
     bins = _t(rng.integers(-1, nb + 1, (b, h, w), dtype=np.int32), dev)
@@ -316,16 +318,22 @@ def test_glcm_cuda_exact(dev, b, h, w, nb):
 
 
 def test_glcm_cuda_refuses_oversized_bins(dev):
-    """Above 240 bins the counts are float32 atomics in device memory, exact
-    up to 2^24 a count: a tile of more than 2^24 pixels is refused there; a
-    4096^2 tile, exactly 2^24, is counted, at 241 bins as at 240."""
+    """Above 240 bins the bands' counts (16-bit counters up to 340 bins) and
+    the device-memory counts (above) add up in float32, exact up to 2^24 a
+    count: a tile of more than 2^24 pixels is refused there; a 4096^2 tile,
+    exactly 2^24, is counted, at 241, 340 and 341 bins as at 240. A packed
+    band of more than 65,535 pixels is refused."""
     with pytest.raises(ValueError, match="too large"):
         glcm_cuda(torch.zeros((1, 4097, 4096), dtype=torch.int32, device=dev), 241)
+    with pytest.raises(ValueError, match="too large"):
+        glcm_cuda(torch.zeros((1, 4097, 4096), dtype=torch.int32, device=dev), 341)
+    with pytest.raises(ValueError, match="bands"):
+        glcm_cuda(torch.zeros((1, 32, 4096), dtype=torch.int32, device=dev), 256, rows=16)
     with pytest.raises(ValueError, match="at least 1"):
         glcm_cuda(torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), 0)
     with pytest.raises(ValueError, match="bands"):
         glcm_cuda(torch.zeros((1, 4097, 4096), dtype=torch.int32, device=dev), 32, rows=8)
-    for nb in (240, 241):
+    for nb in (240, 241, 340, 341):
         g, h = glcm_cuda(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), nb)
         assert float(h[0, 0]) == 4096 * 4096 and float(g[0, 0, 0]) == 4096 * 4095
 
@@ -341,12 +349,17 @@ def _plain_glcm_by_bands(bins, nb, rows=64):
 # B = 1, the kernel chains' one window: row bands spread it over the card
 @pytest.mark.parametrize("h,w,nb", [(4096, 4096, 32), (4096, 4096, 240), (4096, 4096, 241),
                                     (4096, 4096, 256), (4096, 4095, 256), (4095, 4096, 32),
-                                    (1000, 37, 32)])
+                                    (1000, 37, 32), (4096, 4096, 340), (4096, 4096, 341),
+                                    (1000, 37, 256)])
 def test_glcm_cuda_one_window(dev, h, w, nb):
     gen = torch.Generator(device=dev).manual_seed(h + w + nb)
     bins = torch.randint(-1, nb + 1, (1, h, w), generator=gen, dtype=torch.int32, device=dev)
     bins[0, : h // 2, : w // 2] = nb // 3  # a popular bin: many blocks add into one counter
+    which = glcm.route(nb, w)
+    assert which == ("shared" if nb <= 240 else "packed" if nb <= 340 else "global")
+    before = glcm.route_launches[which]
     g, hist = glcm_cuda(bins, nb)
+    assert glcm.route_launches[which] == before + 1
     g_ref, h_ref = _plain_glcm_by_bands(bins, nb)
     assert torch.equal(g, g_ref)
     assert torch.equal(hist, h_ref)
@@ -354,7 +367,7 @@ def test_glcm_cuda_one_window(dev, h, w, nb):
 
 
 @pytest.mark.parametrize("rows", [1, 7, 8, 64])
-@pytest.mark.parametrize("nb", [32, 85])
+@pytest.mark.parametrize("nb", [32, 85, 256])
 def test_glcm_cuda_bands_equal_one_block_a_tile(dev, rows, nb):
     """The band split against the one-block-a-tile launch (the WSI path's,
     on its 512 x 64^2 batch), on the 16-byte path and the scalar one."""
@@ -367,6 +380,29 @@ def test_glcm_cuda_bands_equal_one_block_a_tile(dev, rows, nb):
         assert torch.equal(g1, gb) and torch.equal(h1, hb)
         g_ref, h_ref = ops.glcm_histogram(bins, nb, impl="torch")
         assert torch.equal(g1, g_ref) and torch.equal(h1, h_ref)
+
+
+@pytest.mark.parametrize("value", [2, 3])  # the low and the high half of a word
+@pytest.mark.parametrize("h,w", [(3, 65_535), (15, 4369), (2, 65_532)])
+def test_glcm_cuda_packed_band_full_to_the_last_count(dev, value, h, w):
+    """One bin everywhere in bands of exactly 65,535 pixels (3 bands of one
+    row; one band of 15 rows, stored without atomics), and of 65,532 on the
+    16-byte path: the histogram counter of a band reaches 65,535, the most a
+    16-bit half holds, and carries nothing into its neighbour. The bands the
+    wrapper picks count the same."""
+    nb = 256
+    assert glcm.route(nb, w) == "packed"
+    bins = torch.full((1, h, w), value, dtype=torch.int32, device=dev)
+    want_h = torch.zeros((1, nb), device=dev)
+    want_h[0, value] = h * w
+    want_g = torch.zeros((1, nb, nb), device=dev)
+    want_g[0, value, value] = h * (w - 1)
+    for rows in (glcm.MAX_BAND_PIXELS // w, None):
+        before = glcm.route_launches["packed"]
+        g, hist = glcm_cuda(bins, nb, rows=rows)
+        assert glcm.route_launches["packed"] == before + 1
+        assert torch.equal(hist, want_h)
+        assert torch.equal(g, want_g)
 
 
 def test_analyze_tile_cuda_matches_plain(dev):
@@ -432,12 +468,26 @@ def test_flash_attention_cuda_matches_plain(dev, dtype, tol, b, hq, hkv, tq, tk,
         (1, 2, 2, 9, 9, 128, True, 4, -6),  # offset and window: rows see 0 to 3 keys
         (2, 25, 5, 1, 2049, 64, True, 1024, 2048),  # Tq = 1 behind a full window
         (1, 5, 1, 1, 77, 128, True, None, 76),  # Tq = 1, D = 128
+        # D = 192 and 256: Q in shared memory, 32-key tiles
+        (2, 16, 16, 256, 256, 192, True, None, 0),  # MLA's scoring head_dim, whole tiles
+        (1, 8, 2, 300, 300, 192, True, 100, 0),  # GQA, causal and a window, ragged tiles
+        (1, 4, 2, 70, 130, 192, True, 50, 60),  # query offset, ragged Tk
+        (1, 2, 2, 70, 40, 192, True, None, -50),  # 50 rows with no visible key
+        (1, 4, 2, 100, 200, 192, False, None, 0),  # not causal
+        (1, 16, 16, 1, 2049, 192, True, None, 2048),  # Tq = 1
+        (1, 8, 1, 300, 300, 256, True, None, 0),  # gemma-2b's MQA, ragged tiles
+        (1, 8, 2, 300, 300, 256, True, 100, 0),  # GQA, causal and a window
+        (1, 4, 2, 70, 130, 256, True, 50, 60),  # query offset, ragged Tk
+        (1, 2, 2, 9, 9, 256, True, 4, -6),  # offset and window: rows see 0 to 3 keys
+        (1, 2, 1, 33, 77, 256, False, 20, 0),  # window without the causal mask
+        (1, 4, 2, 100, 200, 256, False, None, 0),  # not causal
+        (1, 8, 1, 1, 77, 256, True, None, 76),  # Tq = 1
     ],
 )
 def test_flash_attention_tensor_cores_match_plain(dev, b, hq, hkv, tq, tk, d, causal, window,
                                                    qoff):
-    """bf16 at D = 64 and 128 runs on the tensor-core instance, held at the
-    LM path's bf16 tolerance; rows that see no key give 0."""
+    """bf16 at D = 64, 128, 192 and 256 runs on the tensor-core instance,
+    held at the LM path's bf16 tolerance; rows that see no key give 0."""
     g = torch.Generator(device=dev).manual_seed(tq * tk + d + hq)
     q, k, v = (torch.randn((b, h, t, d), generator=g, device=dev).to(torch.bfloat16)
                for h, t in ((hq, tq), (hkv, tk), (hkv, tk)))

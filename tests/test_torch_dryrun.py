@@ -73,27 +73,86 @@ sys.path.insert(0, "src")
 from repro.analysis import hlo
 from repro.launch.cells import build_cell, lower_cell
 from repro.launch.mesh import make_host_mesh
+import json, re
 mesh = make_host_mesh(2, 2)
 cell = build_cell("qwen3-0.6b", "prefill_32k", mesh, cfg_overrides={"num_layers": 2})
-print("REF_FLOPS", hlo.analyze(lower_cell(cell, mesh).compile().as_text()).flops)
+text = lower_cell(cell, mesh).compile().as_text()
+cost = hlo.analyze(text)
+# the element type of every collective's result, by kind
+kinds = "all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute"
+dtypes = sorted({(m[1], m[0]) for m in re.findall(
+    r"= \(?(\w+)\[[\d,]*\]\S* (" + kinds + r")(?:-start)?\(", text)})
+print("REF_CELL", json.dumps({"flops": cost.flops, "collectives": cost.collectives,
+                              "collective_counts": cost.collective_counts, "dtypes": dtypes}))
 """
 
 
-def test_prefill_cell_flops_per_rank_match_the_reference_hlo():
-    """A 2-layer qwen3 prefill_32k cell on a (2, 2) mesh: the counter's
-    per-rank matrix-product FLOPs against the reference's multiplicity-aware
-    HLO count of the same cell compiled for 4 host devices."""
+@pytest.fixture(scope="module")
+def prefill_cell():
+    """The 2-layer qwen3 prefill_32k cell on a (2, 2) mesh: the reference's
+    multiplicity-aware HLO count of the cell compiled for 4 host devices, and
+    the port's per-rank count of the same cell."""
     ref = subprocess.run([sys.executable, "-c", _REF_CELL], capture_output=True, text=True,
                          timeout=600, cwd=ROOT, preexec_fn=_lower_priority)
-    line = [ln for ln in ref.stdout.splitlines() if ln.startswith("REF_FLOPS ")]
+    line = [ln for ln in ref.stdout.splitlines() if ln.startswith("REF_CELL ")]
     assert line, ref.stdout + ref.stderr
-    ref_flops = float(line[0].split()[1])
     fake_world(4)
     mesh = make_host_mesh(2, 2, device="cpu")
     cell = build_cell("qwen3-0.6b", "prefill_32k", mesh, cfg_overrides={"num_layers": 2})
     _, cost, _ = trace_cell(cell, mesh)
-    assert cost.flops == pytest.approx(ref_flops, rel=0.02)
+    return json.loads(line[0].split(" ", 1)[1]), cost
+
+
+def test_prefill_cell_flops_per_rank_match_the_reference_hlo(prefill_cell):
+    """The counter's per-rank matrix-product FLOPs against the reference's."""
+    ref, cost = prefill_cell
+    assert cost.flops == pytest.approx(ref["flops"], rel=0.02)
     assert cost.collective_counts.get("all-reduce", 0) > 0  # the heads' partial sums
+
+
+def test_prefill_cell_collective_bytes_by_kind_are_the_reference_in_bf16(prefill_cell):
+    """Both sides issue the same collectives on the cell: five all-reduces of
+    a (16, 32768, 1024) partial sum a rank (two a layer, the attention's
+    and the MLP's output projections, and the embedding lookup's). The port
+    all-reduces them in the model's bf16; XLA's CPU backend promotes a bf16
+    all-reduce to f32 (its reduction computations are the `*.clone_promoted`
+    ones), so the reference counts each at twice the bytes. The ratio is
+    exactly f32's size over bf16's, kind by kind."""
+    ref, cost = prefill_cell
+    assert ref["dtypes"] == [["all-reduce", "f32"]]
+    assert dict(cost.collective_counts) == {"all-reduce": 5}
+    assert {k: int(v) for k, v in ref["collective_counts"].items()} == {"all-reduce": 5}
+    bf16, f32 = torch.bfloat16.itemsize, torch.float32.itemsize
+    assert dict(cost.collectives) == {
+        k: v * bf16 / f32 for k, v in ref["collectives"].items()}
+    assert cost.collectives["all-reduce"] == 5 * 16 * 32768 * 1024 * bf16
+
+
+def test_a_shard_to_shard_redistribution_counts_as_one_all_to_all():
+    """DTensor issues Shard(i) -> Shard(j) as an all-gather and a chunk on a
+    CPU mesh; the counter counts what a card runs, one all-to-all of the
+    local shard's bytes, and nothing of the stand-in."""
+    fake_world(4)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    x = distribute(torch.empty(8, 16, 32, device="meta"), mesh, (Shard(0), Shard(1)))
+    with CostCounter() as c:
+        y = x.redistribute(mesh, (Shard(0), Shard(2)))
+    assert y.placements == (Shard(0), Shard(2))
+    assert dict(c.cost.collective_counts) == {"all-to-all": 1}
+    assert c.cost.collective_bytes == (8 // 2) * (16 // 2) * 32 * 4
+    assert c.cost.bytes == 0
+
+
+def test_moe_cell_counts_its_all_to_alls_as_all_to_alls():
+    """The 2-layer qwen3-moe prefill_32k cell on (2, 2) moves its key and
+    value heads between shardings with two all-to-alls a step."""
+    fake_world(4)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    cell = build_cell("qwen3-moe-235b-a22b", "prefill_32k", mesh,
+                      cfg_overrides={"num_layers": 2})
+    _, cost, _ = trace_cell(cell, mesh)
+    assert cost.collective_counts["all-to-all"] == 2
+    assert cost.collectives["all-to-all"] == 2 * 8 * 4 * 32768 * 128 * 2
 
 
 def test_compute_terms_match_the_reference():

@@ -159,13 +159,14 @@ def test_ssd_shared_memory_at_the_path_shape():
      (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 24, "cuda_core"),
      (torch.bfloat16, 32, "cuda_core"), (torch.float32, 64, "cuda_core"),
      (torch.float32, 128, "cuda_core"), (torch.float32, 16, "cuda_core"),
-     (torch.bfloat16, 192, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
-     (torch.float32, 256, "cuda_core")],
+     (torch.bfloat16, 192, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
+     (torch.float32, 256, "cuda_core"), (torch.float32, 192, "cuda_core"),
+     (torch.float32, 24, "cuda_core"), (torch.float32, 32, "cuda_core")],
 )
 def test_attention_instance_routing(dtype, d, want):
-    """bf16 at D = 64 and 128 takes the tensor-core kernel; float32 (held at
-    3e-4, which TF32 would not hold), the small head dims and D = 192, 256
-    keep the CUDA cores."""
+    """bf16 at D = 64, 128, 192 and 256 takes the tensor-core kernel; float32
+    at every D (held at 3e-4, which TF32 would not hold) and bf16 at the small
+    head dims keep the CUDA cores."""
     assert instance(dtype, d) == want
 
 

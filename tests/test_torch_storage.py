@@ -100,6 +100,9 @@ def _tiered_script(pkg: str, write_policy: str, root) -> list:
     try:
         for k, a in zip(keys, arrs):  # four regions through a RAM tier that holds two
             ts.put(k, dom, a)
+            # the write-back flusher races the demotions to the bottom tier:
+            # a flush after each put fixes the order, so the stats compare
+            ts.flush()
         ts.drain()
         for k in (keys[0], keys[0], keys[3], keys[1], keys[0]):  # repeat reads promote
             out.append(ts.get(k, dom))
