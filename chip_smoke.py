@@ -716,8 +716,9 @@ def main() -> None:
             kernels[-1]["kernel_launches"] = launches["ssd_scan:kernel_launches"]
         if name == "ccl":
             kernels[-1]["kernel_launches"] = launches["ccl:kernel_launches"]
-        if "phase_ms" in r:  # the device's time of a call, apart from the host's
+        if "phase_ms" in r:  # the device's time of a call, apart from the host's, by phase
             kernels[-1]["device_ms"] = r["phase_ms"]["device"]
+            kernels[-1]["phase_ms"] = r["phase_ms"]
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from the start")
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,19 @@
 // Online-softmax (flash) attention for Hopper (sm_90a): GQA, causal mask,
-// sliding window, query offset and ragged key length. Two instances:
+// sliding window, query offset and ragged key length. Three kernels:
 //   * the tensor-core instance (bf16 at D = 64, 128, 192 and 256), in the
 //     FlashAttention-2 layout on mma.sync m16n8k16 bf16 (namespace tc below);
-//   * the CUDA-core instance (float32 at any D, bf16 at D in {16, 24, 32}),
-//     f32 arithmetic throughout, which holds the float32 tolerance of 3e-4.
-// The wrapper (kernels/flash_attention.py::instance) picks one by dtype and D.
+//   * the CUDA-core instance, f32 arithmetic throughout, which holds the
+//     float32 tolerance of 3e-4 (TF32 would not): float32 at D = 64, 128, 192
+//     and 256 in register-tiled products (namespace simt), float32 and bf16
+//     at D in {16, 24, 32} one thread a query (flash_attention_kernel).
+// The wrapper (kernels/flash_attention.py::instance) names the instance by
+// dtype and D; rt_flash_attention picks the CUDA-core kernel by D.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas, which
 // walks a (batch*heads, q blocks, k blocks) grid with the k axis sequential and
 // keeps the (bq, D) accumulator and the running max and sum in VMEM scratch.
 //
-// What both compute, for q (B, Hq, Tq, D) and k, v (B, Hkv, Tk, D):
+// What all compute, for q (B, Hq, Tq, D) and k, v (B, Hkv, Tk, D):
 //   out[b,h,i] = softmax_j(q[b,h,i] . k[b,g(h),j] * scale  over the live j) v[b,g(h),j]
 // with g(h) = h / (Hq/Hkv) (no repeated KV in memory) and key j live for query
 // position qpos = q_offset + i when j < Tk, j <= qpos (causal) and
@@ -21,22 +24,20 @@
 // Bound on the H100: operations at the main path's shapes (q (2,25,2048,64),
 // k/v (2,5,2048,64)): 4*D multiply-adds' worth of flops per live (query, key)
 // pair against the 989 TFLOP/s bf16 tensor-core rate, about 20-27 us a call,
-// above the ~9 us that the 31 MB of q, k, v and out take at 3.35 TB/s.
+// above the ~9 us that the 31 MB of q, k, v and out take at 3.35 TB/s. In
+// float32 the same work meets the 67 TFLOP/s of the CUDA cores: gemma-2b's
+// (2, 8 over 1, 2048, 256) is 0.51 ms of multiply-adds against 0.05 ms of
+// bytes, so the float32 kernel is a pair of SIMT matrix products.
 //
-// CUDA-core design: grid (B*Hq, ceil(Tq/64)); a block owns 64 queries of one head.
-// Each query is held by kLanes neighbouring threads (1 for D <= 32, D/32 to
-// D = 128, 8 above: 24 dims a thread at D = 192, 32 at D = 256), each with a
-// kSlice-wide slice of q (pre-scaled) and of the float32 accumulator in
-// registers. The block stages 32-key tiles of K and V, converted to float32, in
-// dynamic shared memory (73,728 bytes at D = 256, above the 48 KB a block gets
-// without asking); every thread of a query reads the same key row
-// (a broadcast), and the kLanes slices of a row are padded apart so that they
-// fall in different banks. Per tile a thread computes its 32 scores (partial
-// dots summed across the query's lanes with shuffles), then updates the running
-// max m, the sum l and the accumulator once. Tiles that no query of the block
-// may see (wholly in the future under the causal mask, or wholly before the
-// window) are never loaded: the loop runs only over the live tile range, the
-// Pallas kernel's block skip.
+// Small-D design (D <= 32): grid (B*Hq, ceil(Tq/64)); a block of 64 threads
+// owns 64 queries of one head, one thread a query with q (pre-scaled) and the
+// float32 accumulator in registers. The block stages 32-key tiles of K and V,
+// converted to float32, in shared memory; every thread reads the same key row
+// (a broadcast). Per tile a thread computes its 32 scores, then updates the
+// running max m, the sum l and the accumulator once. Tiles that no query of
+// the block may see (wholly in the future under the causal mask, or wholly
+// before the window) are never loaded: the loop runs only over the live tile
+// range, the Pallas kernel's block skip.
 #include <math.h>
 
 #include <type_traits>
@@ -48,44 +49,27 @@ namespace {
 constexpr int kBlockQ = 64;  // queries per block
 constexpr int kBlockK = 32;  // keys per shared-memory tile
 
-// How a head_dim D is split over the threads of one query. At most 8 lanes a
-// query (512 threads a block, 128 registers a thread): D/32 would give 6 lanes
-// at D = 192, which a warp's shuffles cannot group.
-template <int D>
-struct Split {
-  static constexpr int kLanes = D < 64 ? 1 : (D <= 128 ? D / 32 : 8);  // threads per query
-  static constexpr int kSlice = D / kLanes;            // dims per thread
-  static constexpr int kPad = kLanes > 1 ? 4 : 0;      // floats between slices
-  static constexpr int kRow = kLanes * (kSlice + kPad);  // floats per staged key row
-  static constexpr int kSmemBytes = 2 * kBlockK * kRow * (int)sizeof(float);  // K and V tiles
-  static_assert(D % kLanes == 0 && 32 % kLanes == 0, "unsupported head_dim");
-};
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ * Split<D>::kLanes)
+__global__ void __launch_bounds__(kBlockQ)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int hq, int hkv, int tq,
                        int tk, float scale, int causal, int window, int q_offset) {
-  using S = Split<D>;
-  constexpr int kLanes = S::kLanes, kSlice = S::kSlice, kRow = S::kRow;
-  constexpr int kThreads = kBlockQ * kLanes;
-  extern __shared__ __align__(16) float fa_smem[];
-  float* ks = fa_smem;             // [kBlockK][kRow]
-  float* vs = ks + kBlockK * kRow;  // [kBlockK][kRow]
+  static_assert(D <= 32, "one thread a query holds at most 32 dims");
+  __shared__ float ks[kBlockK][D];
+  __shared__ float vs[kBlockK][D];
 
   const int bh = blockIdx.x;  // batch * Hq + query head
   const int kv_row = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int tid = threadIdx.x;
-  const int slice = tid % kLanes;
   const int q0 = blockIdx.y * kBlockQ;
-  const int qrow = q0 + tid / kLanes;
+  const int qrow = q0 + tid;
   const bool q_in = qrow < tq;
   const int qpos = q_offset + qrow;
 
-  float qr[kSlice], acc[kSlice];
-  const T* qp = q + ((size_t)bh * tq + (q_in ? qrow : 0)) * D + slice * kSlice;
+  float qr[D], acc[D];
+  const T* qp = q + ((size_t)bh * tq + (q_in ? qrow : 0)) * D;
 #pragma unroll
-  for (int i = 0; i < kSlice; ++i) {
+  for (int i = 0; i < D; ++i) {
     qr[i] = q_in ? to_f32(qp[i]) * scale : 0.f;
     acc[i] = 0.f;
   }
@@ -105,12 +89,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
+    for (int e = tid; e < kBlockK * D; e += kBlockQ) {
       const int r = e / D, c = e % D;
-      const int dst = r * kRow + (c / kSlice) * (kSlice + S::kPad) + c % kSlice;
       const bool in = k0 + r < tk;
-      ks[dst] = in ? to_f32(kb[(size_t)(k0 + r) * D + c]) : 0.f;
-      vs[dst] = in ? to_f32(vb[(size_t)(k0 + r) * D + c]) : 0.f;
+      ks[r][c] = in ? to_f32(kb[(size_t)(k0 + r) * D + c]) : 0.f;
+      vs[r][c] = in ? to_f32(vb[(size_t)(k0 + r) * D + c]) : 0.f;
     }
     __syncthreads();
 
@@ -118,12 +101,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float tile_max = -INFINITY;
 #pragma unroll
     for (int j = 0; j < kBlockK; ++j) {
-      const float* kr = ks + j * kRow + slice * (kSlice + S::kPad);
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < kSlice; ++i) dot = fmaf(qr[i], kr[i], dot);
-#pragma unroll
-      for (int o = kLanes / 2; o > 0; o /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      for (int i = 0; i < D; ++i) dot = fmaf(qr[i], ks[j][i], dot);
       const int kpos = k0 + j;
       bool live = kpos < tk;
       if (causal) live = live && qpos >= kpos;
@@ -135,15 +115,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no live key yet: keep 0s
     const float alpha = expf(m - m_use);
 #pragma unroll
-    for (int i = 0; i < kSlice; ++i) acc[i] *= alpha;
+    for (int i = 0; i < D; ++i) acc[i] *= alpha;
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < kBlockK; ++j) {
       const float p = expf(s[j] - m_use);
       psum += p;
-      const float* vr = vs + j * kRow + slice * (kSlice + S::kPad);
 #pragma unroll
-      for (int i = 0; i < kSlice; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+      for (int i = 0; i < D; ++i) acc[i] = fmaf(p, vs[j][i], acc[i]);
     }
     l = l * alpha + psum;
     m = m_new;
@@ -151,27 +130,293 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!q_in) return;
   const float inv = 1.f / (l > 0.f ? l : 1.f);
-  T* op = out + ((size_t)bh * tq + qrow) * D + slice * kSlice;
+  T* op = out + ((size_t)bh * tq + qrow) * D;
 #pragma unroll
-  for (int i = 0; i < kSlice; ++i) store(op + i, acc[i] * inv);
+  for (int i = 0; i < D; ++i) store(op + i, acc[i] * inv);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
            int tq, int tk, float scale, int causal, int window, int q_offset,
            cudaStream_t stream) {
-  constexpr int kSmem = Split<D>::kSmemBytes;
-  if (kSmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid(b * hq, (tq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, D><<<grid, kBlockQ * Split<D>::kLanes, kSmem, stream>>>(
+  flash_attention_kernel<T, D><<<grid, kBlockQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), hq, hkv, tq, tk, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// CUDA-core instance at D = 64, 128, 192 and 256 (float32): register-tiled
+// SIMT products, in the manner of CUTLASS's SIMT GEMM.
+//
+// What bounds it: the multiply-adds, 2*D a live (query, key) pair, 0.51 ms
+// at gemma-2b's shape at the CUDA cores' 67 TFLOP/s. A query split over
+// lanes reads one float from shared memory a multiply-add and pays shuffles
+// a score, so shared-memory loads and shuffles bound it, not the FMA units.
+// Here every product is an outer product over a register tile: a thread's
+// 16-byte vectors from shared memory each feed 8 to 16 multiply-adds. On
+// the H100 this runs at about half the FMA rate: an 8 x 8 tile of S (D split
+// over four thread groups, their partial sums added through shared memory)
+// was no faster at 255 registers a thread with spills, while unrolling both
+// products 8 deep, so that the scheduler finds independent loads and
+// multiply-adds across iterations, was (PERF.md, PR 22).
+//
+// Design: grid (B*Hq, ceil(Tq/64)), q-blocks launched last row first (under
+// the causal mask the blocks with the most live tiles start first); a block
+// of 256 threads owns 64 queries of one head and walks the live 64-key tiles.
+// Q (64 x D), one K tile and one V tile sit in shared memory as float32, rows
+// of Q and K padded by 4 floats; they arrive by 16-byte cp.async, zero-filled
+// past Tq and Tk, and each copy overlaps compute: V(t) lands while S(t) is
+// computed, K(t+1) while P(t) V(t) is. Per tile:
+//   * S = Q K^T: a thread holds a 4 x 4 tile of S, rows srg + 16i and keys
+//     skg + 16j: a warp's 2 rows' and 16 keys' 16-byte loads of 4 dims feed
+//     16 multiply-adds a thread.
+//   * Softmax in the log2 domain (scale*log2(e) folded in): a row's 64 keys
+//     lie with the 16 lanes of a half-warp, so its running max and sum take
+//     4 shuffles each, once a tile, and no barrier. P goes to shared memory
+//     transposed, P^T (64 keys x 64 rows), with the rescale factor alpha of
+//     each row.
+//   * O = alpha O + P V: a thread owns 4 or 8 rows by 4 to 12 columns of O
+//     (16 to 64 registers) and per key loads one or two 16-byte vectors of
+//     P^T and one to three of V, 16 to 64 multiply-adds.
+// Shared memory at D = 256: 216,576 bytes, one block an SM (8 warps); the
+// register tiles' independent multiply-adds keep the FMA pipes busy with two
+// warps a scheduler. A block stages its KV head's tiles itself: gemma's 8
+// query heads over one KV head read it 8 times, from the 50 MB L2.
+// ---------------------------------------------------------------------------
+namespace simt {
+
+constexpr int kThreads = 256;
+constexpr int kBlockQ = 64;  // queries per block
+constexpr int kBlockK = 64;  // keys per staged tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int kNR = D == 256 ? 2 : 1;       // row quads of O a thread
+  static constexpr int kNV = D == 256 ? 2 : D / 64;  // column quads of O a thread
+  static constexpr int kRG = 16 / kNR;               // row groups of O
+  static constexpr int kCG = D / (4 * kNV);          // column groups of O
+  static constexpr int kRow = D + 4;                 // floats per staged Q or K row
+  static constexpr int kPRow = kBlockQ + 4;          // floats per row of P^T
+  static constexpr int kSmemBytes =
+      4 * (kBlockQ * kRow + kBlockK * kRow + kBlockK * D + kBlockK * kPRow + 2 * kBlockQ);
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256, "SIMT head_dim");
+  static_assert(kRG * kCG == kThreads && kCG % 8 == 0, "O's tiles cover the block");
+  static_assert(kSmemBytes <= 232448, "one block's shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out, int hq, int hkv,
+                     int tq, int tk, float scale_log2, int causal, int window, int q_offset) {
+  using T = Tile<D>;
+  constexpr int kRow = T::kRow, kPRow = T::kPRow, kNR = T::kNR, kNV = T::kNV;
+  extern __shared__ __align__(16) float fs[];
+  float* qs = fs;                           // [kBlockQ][kRow]
+  float* ks = qs + kBlockQ * kRow;          // [kBlockK][kRow]
+  float* vs = ks + kBlockK * kRow;          // [kBlockK][D]
+  float* ps = vs + kBlockK * D;             // [kBlockK][kPRow]: P^T
+  float* alpha_s = ps + kBlockK * kPRow;   // [kBlockQ]: the tile's rescale of O
+  float* l_s = alpha_s + kBlockQ;           // [kBlockQ]: the final sums
+
+  const int bh = blockIdx.x;  // batch * Hq + query head
+  const int kv_row = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // last q-block first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // S: rows srg + 16i, keys skg + 16j; a row's 64 keys lie with the 16
+  // lanes of one half-warp
+  const int srg = warp * 2 + lane / 16, skg = lane % 16;
+  // O: rows u * 64/kNR + prg*4 + e, columns w * D/kNV + pcg*4 + f
+  constexpr int kWarpCols = T::kCG / 8;
+  const int prg = (warp / kWarpCols) * 4 + lane / 8, pcg = (warp % kWarpCols) * 8 + lane % 8;
+
+  // The live tile range of the whole block (the Pallas kernel's block skip).
+  const int q_lo = q_offset + q0;
+  const int q_hi = q_offset + min(q0 + kBlockQ, tq) - 1;
+  const int nk = (tk + kBlockK - 1) / kBlockK;
+  int kt_end = nk;
+  if (causal) kt_end = q_hi < 0 ? 0 : min(nk, q_hi / kBlockK + 1);
+  int kt_begin = 0;
+  if (window >= 0) kt_begin = max(0, q_lo - window + 1) / kBlockK;
+
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* kb = k + (size_t)kv_row * tk * D;
+  const float* vb = v + (size_t)kv_row * tk * D;
+  // 64 rows from row r0 of a (len, D) slab into dst (stride floats a row),
+  // zero-filled from len on.
+  auto stage = [&](float* dst, int stride, const float* src, int r0, int len) {
+    constexpr int kChunks = D / 4;  // 16-byte chunks a row
+#pragma unroll 4
+    for (int e = tid; e < 64 * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * 4;
+      const bool in = r0 + r < len;
+      cp_async16(smem_addr(dst + r * stride + c), src + (size_t)(in ? r0 + r : 0) * D + c,
+                 in ? 16 : 0);
+    }
+  };
+
+  float o[4 * kNR][4 * kNV];
+#pragma unroll
+  for (int r = 0; r < 4 * kNR; ++r)
+#pragma unroll
+    for (int c = 0; c < 4 * kNV; ++c) o[r][c] = 0.f;
+  float m[4], l[4];  // running max and sum of rows srg + 16i (log2 domain)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+
+  if (kt_begin < kt_end) {
+    stage(qs, kRow, qb, q0, tq);
+    stage(ks, kRow, kb, kt_begin * kBlockK, tk);
+  }
+  cp_async_commit();
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBlockK;
+    cp_async_wait_all();
+    __syncthreads();  // K (and Q) landed; every thread is done with the last tile's V and P
+    stage(vs, D, vb, k0, tk);
+    cp_async_commit();
+
+    // S = Q K^T in a 4 x 4 register tile
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    const float* qr = qs + srg * kRow;
+    const float* kr = ks + skg * kRow;
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(qr + 16 * i * kRow + d);
+        kv[i] = *reinterpret_cast<const float4*>(kr + 16 * i * kRow + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // Mask, scale into the log2 domain; the online softmax of each row over
+    // its half-warp (4 shuffles reduce the maximum, 4 the sum).
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = srg + 16 * i, qpos = q_offset + q0 + row;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + skg + 16 * j;
+        bool live = kpos < tk;
+        if (causal) live = live && qpos >= kpos;
+        if (window >= 0) live = live && qpos - kpos < window;
+        s[i][j] = live ? s[i][j] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o_ = 1; o_ < 16; o_ *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no live key yet: keep 0s
+      const float alpha = exp2f(m[i] - m_use);
+      m[i] = m_new;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[i][j] - m_use);
+        psum += p;
+        ps[(skg + 16 * j) * kPRow + row] = p;
+      }
+#pragma unroll
+      for (int o_ = 1; o_ < 16; o_ *= 2) psum += __shfl_xor_sync(0xffffffffu, psum, o_);
+      l[i] = l[i] * alpha + psum;
+      if (skg == 0) alpha_s[row] = alpha;
+    }
+    cp_async_wait_all();  // V has landed
+    __syncthreads();      // P and alpha are in place; every thread is done with K
+    if (kt + 1 < kt_end) stage(ks, kRow, kb, k0 + kBlockK, tk);
+    cp_async_commit();
+
+    // O = alpha O + P V in a (4 kNR) x (4 kNV) register tile
+#pragma unroll
+    for (int u = 0; u < kNR; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float a = alpha_s[u * (kBlockQ / kNR) + prg * 4 + e];
+#pragma unroll
+        for (int c = 0; c < 4 * kNV; ++c) o[4 * u + e][c] *= a;
+      }
+    const float* pr = ps + prg * 4;
+    const float* vr = vs + pcg * 4;
+#pragma unroll 8
+    for (int j = 0; j < kBlockK; ++j) {
+      float4 pv[kNR], vv[kNV];
+#pragma unroll
+      for (int u = 0; u < kNR; ++u)
+        pv[u] = *reinterpret_cast<const float4*>(pr + j * kPRow + u * (kBlockQ / kNR));
+#pragma unroll
+      for (int w = 0; w < kNV; ++w)
+        vv[w] = *reinterpret_cast<const float4*>(vr + j * D + w * (D / kNV));
+#pragma unroll
+      for (int u = 0; u < kNR; ++u) {
+        const float pa[4] = {pv[u].x, pv[u].y, pv[u].z, pv[u].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int w = 0; w < kNV; ++w) {
+            o[4 * u + e][4 * w + 0] = fmaf(pa[e], vv[w].x, o[4 * u + e][4 * w + 0]);
+            o[4 * u + e][4 * w + 1] = fmaf(pa[e], vv[w].y, o[4 * u + e][4 * w + 1]);
+            o[4 * u + e][4 * w + 2] = fmaf(pa[e], vv[w].z, o[4 * u + e][4 * w + 2]);
+            o[4 * u + e][4 * w + 3] = fmaf(pa[e], vv[w].w, o[4 * u + e][4 * w + 3]);
+          }
+      }
+    }
+  }
+
+  // Finalise: the sums to O's owners, then divide only where l > 0.
+  if (skg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) l_s[srg + 16 * i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kNR; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = u * (kBlockQ / kNR) + prg * 4 + e;
+      if (q0 + row >= tq) continue;
+      const float lr = l_s[row];
+      const float inv = 1.f / (lr > 0.f ? lr : 1.f);
+      float* op = out + ((size_t)bh * tq + q0 + row) * D + pcg * 4;
+#pragma unroll
+      for (int w = 0; w < kNV; ++w)
+        *reinterpret_cast<float4*>(op + w * (D / kNV)) =
+            make_float4(o[4 * u + e][4 * w] * inv, o[4 * u + e][4 * w + 1] * inv,
+                        o[4 * u + e][4 * w + 2] * inv, o[4 * u + e][4 * w + 3] * inv);
+    }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
+           int tq, int tk, float scale, int causal, int window, int q_offset,
+           cudaStream_t stream) {
+  constexpr int kSmem = Tile<D>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * hq, (tq + kBlockQ - 1) / kBlockQ);
+  flash_attention_simt<D><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), hq, hkv, tq, tk, scale * kLog2e, causal, window, q_offset);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace simt
 
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, int b, int hq,
@@ -185,10 +430,10 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, in
   }
   if constexpr (std::is_same<T, float>::value) {  // bf16 from 64 up: the tensor cores
     switch (d) {
-      case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-      case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-      case 192: return launch<T, 192>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
-      case 256: return launch<T, 256>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 64: return simt::launch<64>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 128: return simt::launch<128>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 192: return simt::launch<192>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
+      case 256: return simt::launch<256>(q, k, v, out, b, hq, hkv, tq, tk, scale, causal, window, q_offset, stream);
       default: break;
     }
   }
@@ -200,7 +445,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, in
 // q (b, hq, tq, d), k and v (b, hkv, tk, d), out like q; all contiguous, float32
 // (bf16 = 0) or bfloat16 (bf16 = 1). window < 0 means no window. The caller
 // checks d in {16, 24, 32, 64, 128, 192, 256} (bf16: {16, 24, 32}; bf16 from
-// D = 64 up is the tensor-core instance's) and hq % hkv == 0.
+// D = 64 up is the tensor-core instance's), hq % hkv == 0 and, from D = 64
+// up, 16-byte aligned q, k, v.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                   int hq, int hkv, int tq, int tk, int d, int bf16, float scale,
                                   int causal, int window, int q_offset, cudaStream_t stream) {

@@ -42,16 +42,16 @@
 //   * chunks in series: only phase 2 walks the chunks, 16 dependent
 //     multiply-adds a thread whose loads do not depend on the carry;
 //   * a serial cumsum in one thread: phase 1 scans with warp shuffles;
-//   * float32 products with both operands in shared memory: in bf16 phase 3
-//     runs C B^T and the intra-chunk product on mma.sync m16n8k16, the scaled
-//     S going from the accumulators straight into A fragments (the P V step of
-//     flash_attention.cu's tensor-core instance), as a hi and a lo part so
-//     that S keeps 16 bits; the float32 instance keeps
-//     CUDA-core products but gives each thread a 4x4 register tile, so one
-//     pair of 16-byte shared loads feeds 16 multiply-adds.
-// Phase 1's S_c stays float32 on the CUDA cores in both instances: the weight
-// exp(total - cum_j) dt_j, folded into a bf16 operand, would round the state,
-// which is held at 3e-4 in bf16 too.
+//   * float32 products with both operands in shared memory: in bf16 phases 1
+//     and 3 run their products on mma.sync m16n8k16 (the tensor-core
+//     instance below), every operand that is not bf16 already (w_j B_j, the
+//     state H_c, the scaled C B^T) as a hi and a lo bf16 part, so that it
+//     keeps some 16 bits and the state stays within 3e-4; the float32
+//     instance keeps CUDA-core products but gives each thread a 4x4 register
+//     tile, so one pair of 16-byte shared loads feeds 16 multiply-adds.
+// At mamba2-2.7b's shape (x (2,2048,80,64) bf16, N = 128) the float32
+// states written by phase 1, rewritten by phase 2 and read by phase 3 are 84
+// MB each way; they, not the 10.7 GFLOP of products, bound this design.
 #include <math.h>
 #include <stdint.h>
 
@@ -140,39 +140,14 @@ __device__ __forceinline__ void store_state_tile(float* so, const float (&acc)[4
   }
 }
 
-// Phase 1: one block per (batch*head, chunk).
-template <typename T>
-__global__ void __launch_bounds__(kStateThreads)
-ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bm, float* __restrict__ cd,
-                float* __restrict__ states, int t, int h, int p, int g, int n, int chunk,
-                int vec_x, int vec_b) {
-  const int lp = round_up(chunk, 16), p4 = round_up(p, 4), n4 = round_up(n, 4);
-  extern __shared__ __align__(16) float sm1[];
-  float* wbs = sm1;  // (lp, n4) w_j B_j in float32, zero-padded; then the partial sums
-  float* dts = wbs + state_wbs_floats(lp, n4);  // (lp,) dt, then w
-  float* cum = dts + lp;                         // (lp,)
-  float* wsum = cum + lp;                        // (32,) per-warp totals of the scan
-  T* xs = reinterpret_cast<T*>(wsum + 32);       // (lp, p4) x, zero-padded
-  T* bs = xs + lp * p4;                          // (lp, n4) B, zero-padded
-
-  const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
-  const int b = bh / h, hd = bh % h, grp = hd / (h / g);
-  const int t0 = c * chunk, len = min(chunk, t - t0);
+// The chunk's inclusive cumsum of dt*a into cum, by warp shuffles, then the
+// warps' totals; dts holds dt, zero past len, so cum past len repeats the
+// total. Writes cum and dt to cdo (the chunk's row of the scratch cd) and
+// turns dts into the weights w_j = exp(total - cum_j) dt_j (0 past len). A
+// block of kStateThreads calls it, all threads at once.
+__device__ __forceinline__ void chunk_weights(float* dts, float* cum, float* wsum, float av,
+                                              int lp, float* cdo) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const float av = a[hd];
-
-  stage_rows(xs, p4, x + (((size_t)b * t + t0) * h + hd) * p, (size_t)h * p, p, len, lp,
-             vec_x);
-  stage_rows(bs, n4, bm + (((size_t)b * t + t0) * g + grp) * n, (size_t)g * n, n, len, lp,
-             vec_b);
-  cp_async_commit();
-  for (int j = tid; j < lp; j += kStateThreads)
-    dts[j] = j < len ? dt[((size_t)b * t + t0 + j) * h + hd] : 0.f;
-  __syncthreads();
-
-  // Inclusive cumsum of dt*a: warp shuffles, then the warps' totals. Padded
-  // entries add 0, so cum past len repeats total.
   float carry = 0.f;
   for (int base = 0; base < lp; base += kStateThreads) {
     const int j = base + tid;
@@ -194,13 +169,53 @@ ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
   }
   const float total = cum[lp - 1];
-
-  float* cdo = cd + ((size_t)bh * nc + c) * 2 * lp;
   for (int j = tid; j < lp; j += kStateThreads) {  // the same thread reads and rewrites dts[j]
     cdo[j] = cum[j];
     cdo[lp + j] = dts[j];
-    dts[j] = expf(total - cum[j]) * dts[j];  // w_j; 0 past len
+    dts[j] = expf(total - cum[j]) * dts[j];
   }
+}
+
+// Splits the pair (x0, x1) into two bf16 pairs, hi (x rounded) and lo (what
+// that rounding left, rounded again): hi + lo is x to about 2^-16 relative.
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// Phase 1, CUDA-core instance: one block per (batch*head, chunk).
+template <typename T>
+__global__ void __launch_bounds__(kStateThreads)
+ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ a, const T* __restrict__ bm, float* __restrict__ cd,
+                float* __restrict__ states, int t, int h, int p, int g, int n, int chunk,
+                int vec_x, int vec_b) {
+  const int lp = round_up(chunk, 16), p4 = round_up(p, 4), n4 = round_up(n, 4);
+  extern __shared__ __align__(16) float sm1[];
+  float* wbs = sm1;  // (lp, n4) w_j B_j in float32, zero-padded; then the partial sums
+  float* dts = wbs + state_wbs_floats(lp, n4);  // (lp,) dt, then w
+  float* cum = dts + lp;                         // (lp,)
+  float* wsum = cum + lp;                        // (32,) per-warp totals of the scan
+  T* xs = reinterpret_cast<T*>(wsum + 32);       // (lp, p4) x, zero-padded
+  T* bs = xs + lp * p4;                          // (lp, n4) B, zero-padded
+
+  const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
+  const int b = bh / h, hd = bh % h, grp = hd / (h / g);
+  const int t0 = c * chunk, len = min(chunk, t - t0);
+  const int tid = threadIdx.x;
+  const float av = a[hd];
+
+  stage_rows(xs, p4, x + (((size_t)b * t + t0) * h + hd) * p, (size_t)h * p, p, len, lp,
+             vec_x);
+  stage_rows(bs, n4, bm + (((size_t)b * t + t0) * g + grp) * n, (size_t)g * n, n, len, lp,
+             vec_b);
+  cp_async_commit();
+  for (int j = tid; j < lp; j += kStateThreads)
+    dts[j] = j < len ? dt[((size_t)b * t + t0 + j) * h + hd] : 0.f;
+  __syncthreads();
+
+  chunk_weights(dts, cum, wsum, av, lp, cd + ((size_t)bh * nc + c) * 2 * lp);
   cp_async_wait_all();
   __syncthreads();
   const int wstep = max(1, kStateThreads / n4);  // thread k takes column k % n4, every wstep-th row
@@ -411,47 +426,40 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ cd, const T* _
   }
 }
 
-// Phase 3, tensor-core instance (bf16, N a multiple of 16, P in {16, 32, 64,
-// 128}). A block of 4 warps owns one chunk; row tile q (16 rows) goes with row
-// tile nrt-1-q to one warp, so every warp walks about the same number of key
-// tiles under the causal mask. X, B and C stay bf16 in shared memory, rows
-// padded by 16 bytes so that the 8 rows an ldmatrix phase reads fall in 8
-// different bank groups. Per key tile of 16 (none above the warp's diagonal):
-// S = C B^T on mma.sync, scaled in its f32 accumulators by
-// exp(cum_i - cum_j) dt_j where j <= i (0 elsewhere), packed to two bf16 A
-// fragments (hi and lo) and multiplied with X through ldmatrix.trans, onto accumulators
-// that start from the inter-chunk term exp(cum_i) C_i . H_c, float32
-// multiply-adds in registers, as is the skip.
+// The tensor-core instance (bf16, N in {16, 32, 64, 128}, P in {16, 32, 64,
+// 128}): phases 1 and 3 on mma.sync m16n8k16 with float32 accumulators, by
+// blocks of 4 warps. X, B and C stay bf16 (exact as operands); what is not
+// bf16 (w_j B_j in phase 1, the state H_c in phase 3, the scaled C B^T) is
+// split into a hi and a lo bf16 part (split_bf16) and multiplied twice, which
+// keeps some 16 bits of it where one bf16 rounding keeps 8: the state stays
+// within 3e-4, as in float32. Staged rows are padded by 16 bytes so that the
+// 8 rows an ldmatrix phase reads fall in 8 different bank groups.
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
+static_assert(kTcThreads == kStateThreads, "phase 1's cumsum takes kStateThreads threads");
 
-// Splits the pair (x0, x1) into two bf16 pairs, hi (x rounded) and lo (what
-// that rounding left, rounded again): hi + lo is x to about 2^-16 relative.
-__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// At P <= 64 five blocks fit an SM within 102 registers a thread; P = 128
-// would spill there and takes two.
+// Phase 1, tensor-core instance: S_c = (w . B)^T X, an (N x Lp) by (Lp x P)
+// product. Warp w takes the 16-row tiles w, w + 4, ... of S_c (the states s);
+// per 16-key step it reads its A fragment of B^T by ldmatrix.trans from the
+// staged B (Lp, N+8), scales each element by w_j in float32 and splits it
+// (two products), and reads X's B fragments by ldmatrix.trans as phase 3
+// does. At mamba2-2.7b's chunk 128, P 64, N 128 a block holds 54,400 bytes of
+// shared memory (x, B, dt and cum), four blocks an SM.
 template <int P>
-__global__ void __launch_bounds__(kTcThreads, P <= 64 ? 5 : 2)
-ssd_chunk_scan_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ cd,
-                  const __nv_bfloat16* __restrict__ cm, const __nv_bfloat16* __restrict__ bm,
-                  const float* __restrict__ dskip, const float* __restrict__ states,
-                  __nv_bfloat16* __restrict__ y, int t, int h, int g, int n, int chunk) {
+__global__ void __launch_bounds__(kTcThreads, 4)
+ssd_chunk_state_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ a, const __nv_bfloat16* __restrict__ bm,
+                   float* __restrict__ cd, float* __restrict__ states, int t, int h, int g,
+                   int n, int chunk) {
   constexpr int kXRow = P + 8;  // bf16 per staged x row
   constexpr int kPTiles = P / 8;
-  static_assert(P % 16 == 0, "tensor-core P must be a multiple of 16");
-  const int lp = round_up(chunk, 16), nrow = n + 8;  // bf16 per staged B / C row
-  extern __shared__ __align__(16) unsigned char sm_tc[];
-  float* hs = reinterpret_cast<float*>(sm_tc);  // (n, P) state entering the chunk
-  float* cum = hs + n * P;                      // (lp,)
-  float* dts = cum + lp;                        // (lp,)
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dts + lp);  // (lp, kXRow)
-  __nv_bfloat16* bs = xs + lp * kXRow;                              // (lp, nrow)
-  __nv_bfloat16* cs = bs + lp * nrow;                               // (lp, nrow)
+  const int lp = round_up(chunk, 16), nrow = n + 8;  // bf16 per staged B row
+  extern __shared__ __align__(16) unsigned char sm_st[];
+  float* dts = reinterpret_cast<float*>(sm_st);  // (lp,) dt, then w
+  float* cum = dts + lp;                         // (lp,)
+  float* wsum = cum + lp;                        // (32,) per-warp totals of the scan
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(wsum + 32);  // (lp, kXRow)
+  __nv_bfloat16* bs = xs + lp * kXRow;                               // (lp, nrow)
 
   const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
   const int b = bh / h, hd = bh % h, grp = hd / (h / g);
@@ -459,43 +467,178 @@ ssd_chunk_scan_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gr = lane / 4, t4 = lane % 4;  // fragment row group, thread in group
 
-  // Stage everything with 16-byte cp.async; rows past len are zero-filled.
-  const float* hi = states + ((size_t)bh * nc + c) * n * P;
-  for (int e = tid; e < n * P / 4; e += kTcThreads) cp_async16(smem_addr(hs + 4 * e), hi + 4 * e, 16);
+  stage_rows(xs, kXRow, x + (((size_t)b * t + t0) * h + hd) * P, (size_t)h * P, P, len, lp,
+             true);
+  stage_rows(bs, nrow, bm + (((size_t)b * t + t0) * g + grp) * n, (size_t)g * n, n, len, lp,
+             true);
+  cp_async_commit();
+  for (int j = tid; j < lp; j += kTcThreads)
+    dts[j] = j < len ? dt[((size_t)b * t + t0 + j) * h + hd] : 0.f;
+  __syncthreads();
+  chunk_weights(dts, cum, wsum, a[hd], lp, cd + ((size_t)bh * nc + c) * 2 * lp);
+  cp_async_wait_all();
+  __syncthreads();
+
+  float* so = states + ((size_t)bh * nc + c) * n * P;
+  const int ksteps = (len + 15) / 16;  // key steps past len hold only zeros
+  for (int mt = warp; mt < n / 16; mt += kTcWarps) {
+    float acc[kPTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kPTiles; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int k0 = 16 * ks;
+      // A = (w . B)^T over keys k0..k0+15: matrices (s 0-7 | 8-15) x (j 0-7 | 8-15)
+      // of the staged B, transposed on load, so a0..a3 hold (s, j) pairs along j
+      unsigned raw[4];
+      ldsm_x4_trans(smem_addr(bs + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * nrow + mt * 16 +
+                              ((lane >> 3) & 1) * 8),
+                    raw[0], raw[1], raw[2], raw[3]);
+      const float2 w_lo = *reinterpret_cast<const float2*>(dts + k0 + 2 * t4);
+      const float2 w_hi = *reinterpret_cast<const float2*>(dts + k0 + 8 + 2 * t4);
+      unsigned ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 wv = e < 2 ? w_lo : w_hi;
+        const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[e]));
+        split_bf16(bv.x * wv.x, bv.y * wv.y, ahi[e], alo[e]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kPTiles; nt += 2) {
+        unsigned b0, b1, b2, b3;
+        const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_trans(smem_addr(xs + row * kXRow + 8 * nt + (lane >> 4) * 8), b0, b1, b2, b3);
+        mma_bf16(acc[nt], ahi, b0, b1);
+        mma_bf16(acc[nt], alo, b0, b1);
+        mma_bf16(acc[nt + 1], ahi, b2, b3);
+        mma_bf16(acc[nt + 1], alo, b2, b3);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kPTiles; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(so + (mt * 16 + gr) * P + col) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(so + (mt * 16 + gr + 8) * P + col) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// Phase 3, tensor-core instance. A block owns one chunk; row tile q (16 rows)
+// goes with row tile nrt-1-q to one warp, so every warp walks about the same
+// number of key tiles under the causal mask. Per row tile the warp loads C's
+// A fragments for every k-step into registers once, from device memory (C is
+// one group's, shared by the heads, and stays in L2); they serve both
+// products:
+//   * inter-chunk: the accumulators start from C_i (H_hi + H_lo), H_c staged
+//     as its two bf16 parts and read by ldmatrix.trans, then scaled by
+//     exp(cum_i) in float32;
+//   * intra-chunk, per key tile of 16 (none above the warp's diagonal): S = C
+//     B^T, scaled in its f32 accumulators by exp(cum_i - cum_j) dt_j where j
+//     <= i (0 elsewhere), split into hi and lo A fragments and multiplied with
+//     X through ldmatrix.trans onto the same accumulators;
+// then the skip D x in float32. Shared memory holds H's parts, x, B, cum and
+// dt: 91,136 bytes at mamba2-2.7b's chunk 128, P 64, N 128, two blocks an SM.
+template <int N, int P>
+__global__ void __launch_bounds__(kTcThreads, N <= 32 && P <= 64 ? 5 : 2)
+ssd_chunk_scan_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ cd,
+                  const __nv_bfloat16* __restrict__ cm, const __nv_bfloat16* __restrict__ bm,
+                  const float* __restrict__ dskip, const float* __restrict__ states,
+                  __nv_bfloat16* __restrict__ y, int t, int h, int g, int chunk) {
+  constexpr int kXRow = P + 8;  // bf16 per staged x or H row
+  constexpr int kBRow = N + 8;  // bf16 per staged B row
+  constexpr int kPTiles = P / 8, kSteps = N / 16;
+  static_assert(P % 16 == 0 && N % 16 == 0, "tensor-core P and N are multiples of 16");
+  const int lp = round_up(chunk, 16);
+  extern __shared__ __align__(16) unsigned char sm_tc[];
+  float* cum = reinterpret_cast<float*>(sm_tc);                   // (lp,)
+  float* dts = cum + lp;                                          // (lp,)
+  __nv_bfloat16* hh = reinterpret_cast<__nv_bfloat16*>(dts + lp);  // (N, kXRow) H_c's hi part
+  __nv_bfloat16* hl = hh + N * kXRow;                               // (N, kXRow) and its lo part
+  __nv_bfloat16* xs = hl + N * kXRow;                               // (lp, kXRow)
+  __nv_bfloat16* bs = xs + lp * kXRow;                              // (lp, kBRow)
+
+  const int bh = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
+  const int b = bh / h, hd = bh % h, grp = hd / (h / g);
+  const int t0 = c * chunk, len = min(chunk, t - t0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, t4 = lane % 4;  // fragment row group, thread in group
+
+  // Stage x, B, cum and dt with 16-byte cp.async (rows past len zero-filled),
+  // and H_c, read as float4, as its hi and lo parts.
   const float* cdi = cd + ((size_t)bh * nc + c) * 2 * lp;
   for (int e = tid; e < 2 * lp / 4; e += kTcThreads)
     cp_async16(smem_addr(cum + 4 * e), cdi + 4 * e, 16);  // cum, then dts
   stage_rows(xs, kXRow, x + (((size_t)b * t + t0) * h + hd) * P, (size_t)h * P, P, len, lp,
              true);
-  const size_t bc0 = (((size_t)b * t + t0) * g + grp) * n;
-  stage_rows(bs, nrow, bm + bc0, (size_t)g * n, n, len, lp, true);
-  stage_rows(cs, nrow, cm + bc0, (size_t)g * n, n, len, lp, true);
+  const size_t bc0 = (((size_t)b * t + t0) * g + grp) * N;
+  stage_rows(bs, kBRow, bm + bc0, (size_t)g * N, N, len, lp, true);
   cp_async_commit();
+  // H in batches of 8 float4 loads a thread in flight, then split and stored
+  const float* hsrc = states + ((size_t)bh * nc + c) * N * P;
+  constexpr int kH4 = N * P / 4, kBatch = 8;
+  for (int e0 = 0; e0 < kH4; e0 += kBatch * kTcThreads) {
+    float4 hv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kTcThreads + tid;
+      hv[u] = e < kH4 ? *reinterpret_cast<const float4*>(hsrc + 4 * e) : make_float4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kTcThreads + tid;
+      if (e >= kH4) break;
+      const int s = 4 * e / P, col = 4 * e % P;
+      unsigned h0, l0, h1, l1;
+      split_bf16(hv[u].x, hv[u].y, h0, l0);
+      split_bf16(hv[u].z, hv[u].w, h1, l1);
+      *reinterpret_cast<uint2*>(hh + s * kXRow + col) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(hl + s * kXRow + col) = make_uint2(l0, l1);
+    }
+  }
   cp_async_wait_all();
   __syncthreads();
 
   const float dv = dskip[hd];
-  const int nrt = lp / 16, ksteps = n / 16;
+  const int nrt = lp / 16;
   auto row_tile = [&](int rt) {
     const int i0 = 16 * rt;
     if (i0 >= len) return;
     const float cum_r[2] = {cum[i0 + gr], cum[i0 + gr + 8]};
-    // The accumulators start from the inter-chunk term exp(cum_i) C_i . H_c,
-    // in float32 (rows gr and gr+8 share each load of H); the intra-chunk
+    // C rows i0+gr and i0+gr+8 as A fragments, zero past len
+    unsigned cf[kSteps][4];
+    {
+      const bool in0 = i0 + gr < len, in1 = i0 + gr + 8 < len;
+      const unsigned* c0 = reinterpret_cast<const unsigned*>(
+          cm + bc0 + (size_t)(in0 ? i0 + gr : 0) * g * N);
+      const unsigned* c1 = reinterpret_cast<const unsigned*>(
+          cm + bc0 + (size_t)(in1 ? i0 + gr + 8 : 0) * g * N);
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int col = (16 * ks + 2 * t4) / 2;  // in pairs of bf16
+        cf[ks][0] = in0 ? c0[col] : 0u;
+        cf[ks][1] = in1 ? c1[col] : 0u;
+        cf[ks][2] = in0 ? c0[col + 4] : 0u;
+        cf[ks][3] = in1 ? c1[col + 4] : 0u;
+      }
+    }
+
+    // The inter-chunk term exp(cum_i) C_i . (H_hi + H_lo); the intra-chunk
     // products then add onto it.
     float o[kPTiles][4];
 #pragma unroll
     for (int nt = 0; nt < kPTiles; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-    for (int sidx = 0; sidx < n; ++sidx) {
-      const float cv0 = __bfloat162float(cs[(i0 + gr) * nrow + sidx]);
-      const float cv1 = __bfloat162float(cs[(i0 + gr + 8) * nrow + sidx]);
 #pragma unroll
-      for (int nt = 0; nt < kPTiles; ++nt) {
-        const float2 hv = *reinterpret_cast<const float2*>(hs + sidx * P + 8 * nt + 2 * t4);
-        o[nt][0] = fmaf(cv0, hv.x, o[nt][0]);
-        o[nt][1] = fmaf(cv0, hv.y, o[nt][1]);
-        o[nt][2] = fmaf(cv1, hv.x, o[nt][2]);
-        o[nt][3] = fmaf(cv1, hv.y, o[nt][3]);
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int row = 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int nt = 0; nt < kPTiles; nt += 2) {
+        unsigned b0, b1, b2, b3;
+        ldsm_x4_trans(smem_addr(hh + row * kXRow + 8 * nt + (lane >> 4) * 8), b0, b1, b2, b3);
+        mma_bf16(o[nt], cf[ks], b0, b1);
+        mma_bf16(o[nt + 1], cf[ks], b2, b3);
+        ldsm_x4_trans(smem_addr(hl + row * kXRow + 8 * nt + (lane >> 4) * 8), b0, b1, b2, b3);
+        mma_bf16(o[nt], cf[ks], b0, b1);
+        mma_bf16(o[nt + 1], cf[ks], b2, b3);
       }
     }
     {
@@ -512,18 +655,25 @@ ssd_chunk_scan_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__
     const int kt_end = min(rt, (len - 1) / 16);  // key tiles past len hold only zeros
     for (int kt = 0; kt <= kt_end; ++kt) {
       const int k0 = 16 * kt;
-      float s[2][4] = {};
-      for (int ks = 0; ks < ksteps; ++ks) {
-        unsigned a[4], b0, b1, b2, b3;
-        ldsm_x4(smem_addr(cs + (i0 + (lane & 7) + ((lane >> 3) & 1) * 8) * nrow + ks * 16 +
-                          (lane >> 4) * 8),
-                a[0], a[1], a[2], a[3]);
-        ldsm_x4(smem_addr(bs + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * nrow + ks * 16 +
+      // S = C B^T, the even and odd k-steps in separate accumulators (two
+      // dependent chains of kSteps / 2 products, not one of kSteps)
+      float s[2][4] = {}, s_odd[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        unsigned b0, b1, b2, b3;
+        ldsm_x4(smem_addr(bs + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * kBRow + ks * 16 +
                           ((lane >> 3) & 1) * 8),
                 b0, b1, b2, b3);
-        mma_bf16(s[0], a, b0, b1);
-        mma_bf16(s[1], a, b2, b3);
+        if (ks % 2) {
+          mma_bf16(s_odd[0], cf[ks], b0, b1);
+          mma_bf16(s_odd[1], cf[ks], b2, b3);
+        } else {
+          mma_bf16(s[0], cf[ks], b0, b1);
+          mma_bf16(s[1], cf[ks], b2, b3);
+        }
       }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[e / 4][e % 4] += s_odd[e / 4][e % 4];
       // decay and dt in the accumulators; exp only where j <= i
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
@@ -537,10 +687,9 @@ ssd_chunk_scan_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__
           s[nt][e] = jj <= i ? s[nt][e] * __expf(cum_r[e >> 1] - cjj) * djj : 0.f;
         }
       }
-      // S as two bf16 fragments, hi and the rest (split_bf16), each multiplied
-      // with x: the product keeps some 16 bits of S where one bf16 rounding
-      // keeps 8, which at N = 128 (C.B sums 128 products) left errors of 0.05
-      // in a y near 0
+      // S as two bf16 fragments, hi and the rest, each multiplied with x: one
+      // bf16 rounding of S left errors of 0.05 in a y near 0 at N = 128
+      // (C.B sums 128 products)
       unsigned ahi[4], alo[4];
       split_bf16(s[0][0], s[0][1], ahi[0], alo[0]);
       split_bf16(s[0][2], s[0][3], ahi[1], alo[1]);
@@ -595,10 +744,20 @@ size_t scan_smem(int chunk, int p, int n) {
          sizeof(T) * (size_t)lp * p4;
 }
 
+// The tensor-core phases: dt, cum and the scan's warp totals in float32, x
+// (lp, p+8) and B (lp, n+8) in bf16; and the chunk scan's cum and dt, H's two
+// bf16 parts (n, p+8), x and B (kernels/ssd_scan.py::smem_bytes mirrors them)
+size_t state_tc_smem(int chunk, int p, int n) {
+  const int lp = round_up(chunk, 16);
+  return sizeof(float) * (2 * (size_t)lp + 32) +
+         sizeof(__nv_bfloat16) * ((size_t)lp * (p + 8) + (size_t)lp * (n + 8));
+}
+
 size_t scan_tc_smem(int chunk, int p, int n) {
   const int lp = round_up(chunk, 16);
-  return sizeof(float) * ((size_t)n * p + 2 * lp) +
-         sizeof(__nv_bfloat16) * ((size_t)lp * (p + 8) + 2 * (size_t)lp * (n + 8));
+  return sizeof(float) * 2 * (size_t)lp +
+         sizeof(__nv_bfloat16) * (2 * (size_t)n * (p + 8) + (size_t)lp * (p + 8) +
+                                  (size_t)lp * (n + 8));
 }
 
 // Asks for the largest shared-memory carveout (more blocks an SM) and raises
@@ -639,17 +798,43 @@ int chunk_scan(const void* x, const float* cd, const void* cm, const void* bm,
 }
 
 template <int P>
+int chunk_state_tc(const void* x, const float* dt, const float* a, const void* bm, float* cd,
+                   float* states, int b, int t, int h, int g, int n, int chunk,
+                   cudaStream_t stream) {
+  const size_t smem = state_tc_smem(chunk, P, n);
+  if (int err = allow_smem(ssd_chunk_state_tc<P>, smem)) return err;
+  const dim3 grid(b * h, (t + chunk - 1) / chunk);
+  ssd_chunk_state_tc<P><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), dt, a, static_cast<const __nv_bfloat16*>(bm), cd,
+      states, t, h, g, n, chunk);
+  return (int)cudaGetLastError();
+}
+
+template <int N, int P>
 int chunk_scan_tc(const void* x, const float* cd, const void* cm, const void* bm,
                   const float* dskip, const float* states, void* y, int b, int t, int h, int g,
-                  int n, int chunk, cudaStream_t stream) {
-  const size_t smem = scan_tc_smem(chunk, P, n);
-  if (int err = allow_smem(ssd_chunk_scan_tc<P>, smem)) return err;
+                  int chunk, cudaStream_t stream) {
+  const size_t smem = scan_tc_smem(chunk, P, N);
+  if (int err = allow_smem(ssd_chunk_scan_tc<N, P>, smem)) return err;
   const dim3 grid(b * h, (t + chunk - 1) / chunk);
-  ssd_chunk_scan_tc<P><<<grid, kTcThreads, smem, stream>>>(
+  ssd_chunk_scan_tc<N, P><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), cd, static_cast<const __nv_bfloat16*>(cm),
       static_cast<const __nv_bfloat16*>(bm), dskip, states, static_cast<__nv_bfloat16*>(y), t, h,
-      g, n, chunk);
+      g, chunk);
   return (int)cudaGetLastError();
+}
+
+template <int P>
+int chunk_scan_tc_n(const void* x, const float* cd, const void* cm, const void* bm,
+                    const float* dskip, const float* states, void* y, int b, int t, int h,
+                    int g, int n, int chunk, cudaStream_t stream) {
+  switch (n) {
+    case 16: return chunk_scan_tc<16, P>(x, cd, cm, bm, dskip, states, y, b, t, h, g, chunk, stream);
+    case 32: return chunk_scan_tc<32, P>(x, cd, cm, bm, dskip, states, y, b, t, h, g, chunk, stream);
+    case 64: return chunk_scan_tc<64, P>(x, cd, cm, bm, dskip, states, y, b, t, h, g, chunk, stream);
+    case 128: return chunk_scan_tc<128, P>(x, cd, cm, bm, dskip, states, y, b, t, h, g, chunk, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int state_passing(const float* cd, float* states, float* hout, int bh, int nc, int np, int lp,
@@ -660,15 +845,32 @@ int state_passing(const float* cd, float* states, float* hout, int bh, int nc, i
   return (int)cudaGetLastError();
 }
 
+int chunk_state_any(const void* x, const float* dt, const float* a, const void* bm, float* cd,
+                    float* states, int b, int t, int h, int p, int g, int n, int chunk, int bf16,
+                    int tc, cudaStream_t stream) {
+  if (tc) {
+    switch (p) {
+      case 16: return chunk_state_tc<16>(x, dt, a, bm, cd, states, b, t, h, g, n, chunk, stream);
+      case 32: return chunk_state_tc<32>(x, dt, a, bm, cd, states, b, t, h, g, n, chunk, stream);
+      case 64: return chunk_state_tc<64>(x, dt, a, bm, cd, states, b, t, h, g, n, chunk, stream);
+      case 128: return chunk_state_tc<128>(x, dt, a, bm, cd, states, b, t, h, g, n, chunk, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (bf16)
+    return chunk_state<__nv_bfloat16>(x, dt, a, bm, cd, states, b, t, h, p, g, n, chunk, stream);
+  return chunk_state<float>(x, dt, a, bm, cd, states, b, t, h, p, g, n, chunk, stream);
+}
+
 int chunk_scan_any(const void* x, const float* cd, const void* cm, const void* bm,
                    const float* dskip, const float* states, void* y, int b, int t, int h, int p,
                    int g, int n, int chunk, int bf16, int tc, cudaStream_t stream) {
   if (tc) {
     switch (p) {
-      case 16: return chunk_scan_tc<16>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
-      case 32: return chunk_scan_tc<32>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
-      case 64: return chunk_scan_tc<64>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
-      case 128: return chunk_scan_tc<128>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
+      case 16: return chunk_scan_tc_n<16>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
+      case 32: return chunk_scan_tc_n<32>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
+      case 64: return chunk_scan_tc_n<64>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
+      case 128: return chunk_scan_tc_n<128>(x, cd, cm, bm, dskip, states, y, b, t, h, g, n, chunk, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -685,8 +887,8 @@ int chunk_scan_any(const void* x, const float* cd, const void* cm, const void* b
 // (b,t,h), a (h,), dskip (h,), the scratch cd (b*h, nc, 2, lp) and states
 // (b,h,nc,n,p), and hout (b,h,n,p) in float32; all contiguous, with
 // nc = ceil(t / chunk) < 65536, lp = chunk rounded up to 16, t >= 1 and
-// h % g == 0 (the caller checks). tc = 1 takes the tensor-core chunk scan:
-// bf16, n a multiple of 16, p in {16, 32, 64, 128}, x, B and C 16-byte
+// h % g == 0 (the caller checks). tc = 1 takes the tensor-core chunk state
+// and chunk scan: bf16, n and p in {16, 32, 64, 128}, x, B and C 16-byte
 // aligned (the caller checks). events, if not null, holds four cudaEvent_t
 // recorded on the stream before the first phase and after each.
 extern "C" int rt_ssd_scan(const void* x, const float* dt, const float* a, const void* bm,
@@ -698,10 +900,8 @@ extern "C" int rt_ssd_scan(const void* x, const float* dt, const float* a, const
   };
   const int nc = (t + chunk - 1) / chunk, lp = round_up(chunk, 16);
   if (int err = mark(0)) return err;
-  if (int err = bf16 ? chunk_state<__nv_bfloat16>(x, dt, a, bm, cd, states, b, t, h, p, g, n,
-                                                  chunk, stream)
-                     : chunk_state<float>(x, dt, a, bm, cd, states, b, t, h, p, g, n, chunk,
-                                          stream))
+  if (int err = chunk_state_any(x, dt, a, bm, cd, states, b, t, h, p, g, n, chunk, bf16, tc,
+                                stream))
     return err;
   if (int err = mark(1)) return err;
   if (int err = state_passing(cd, states, hout, b * h, nc, n * p, lp, stream)) return err;

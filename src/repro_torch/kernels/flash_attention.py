@@ -9,7 +9,9 @@ path) or 256 runs on the tensor cores (``mma.sync`` in bf16, K and V staged
 as bf16; at 192 and 256 Q is read from shared memory and a staged tile holds
 32 keys, as registers bound those widths), float32 at every D and bf16 at
 D <= 32 on the CUDA cores in float32 (which holds float32's 3e-4; TF32
-would not).
+would not): from D = 64 up as register-tiled products over 64-query by
+64-key tiles, below it one thread a query. From D = 64 up both stage their
+tiles with 16-byte copies, so q, k and v must be 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ HEAD_DIMS = (16, 24, 32, 64, 128, 192, 256)  # the CUDA-core kernel's template i
 TC_HEAD_DIMS = (64, 128, 192, 256)  # the tensor-core kernel's (bf16 only)
 DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_Q = 64  # queries per block in both instances
+ALIGNED_HEAD_DIM = 64  # from this D up the kernels stage q, k, v with 16-byte copies
 MAX_Q_BLOCKS = 65535  # the grid's y extent
 
 
@@ -74,8 +77,8 @@ def flash_attention_cuda(
     if -(-tq // BLOCK_Q) > MAX_Q_BLOCKS:
         raise ValueError(f"attention: Tq {tq} needs more than {MAX_Q_BLOCKS} query blocks")
     which = instance(q.dtype, d)
-    if which == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("attention: the tensor-core kernel needs 16-byte aligned q, k, v")
+    if d >= ALIGNED_HEAD_DIM and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"attention: the kernel at D = {d} needs 16-byte aligned q, k, v")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     out = torch.empty_like(q)
     common = (b, hq, hkv, tq, tk, d)

@@ -124,9 +124,9 @@ def attention(
 
     ``block_q`` and ``block_k`` are the Pallas kernel's tile sizes, kept for
     the reference's signature; the CUDA kernels tile 64 queries by 64 keys
-    (tensor cores, bf16 at D = 64 and 128), 32 keys (tensor cores, bf16 at
-    D = 192 and 256, where registers and shared memory bound the tile) or 32
-    keys (CUDA cores: float32, and bf16 at D <= 32).
+    (tensor cores, bf16 at D = 64 and 128; CUDA cores, float32 from D = 64
+    up), 32 keys (tensor cores, bf16 at D = 192 and 256, where registers and
+    shared memory bound the tile) or 32 keys (CUDA cores, D <= 32).
     """
     if _use_kernel(impl, q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -559,18 +559,32 @@ def _to_chunks(v: torch.Tensor, chunk: int) -> torch.Tensor:
     return v.permute(0, 3, 1, 2, *range(4, v.dim())).float()
 
 
+def _split(v: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """v as the tensor-core kernels multiply it: two parts of ``dtype`` (v
+    rounded, and what the rounding left, rounded again), summed in float32;
+    v itself where ``dtype`` is None."""
+    if dtype is None:
+        return v
+    hi = v.to(dtype).float()
+    return hi + (v - hi).to(dtype).float()
+
+
 def ssd_chunk_state_ref(
-    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Tensor, chunk: int
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Tensor, chunk: int,
+    split_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Phase 1: (cum, dt, S), each chunk's inclusive cumsum of dt*a and its
     dt, (B, H, nc, L), and its own state S_c = sum_j exp(total - cum_j) dt_j
-    B_j x_j^T, (B, H, nc, N, P), all float32."""
+    B_j x_j^T, (B, H, nc, N, P), all float32. ``split_dtype`` splits the
+    weighted w_j B_j into two parts of that dtype (``_split``) before the
+    product with x, as the tensor-core instance does with bf16."""
     rep = x.shape[2] // b_.shape[2]
     dth = _to_chunks(dt[..., None], chunk)[..., 0]
     cum = torch.cumsum(dth * a.float()[None, :, None, None], dim=-1)
     w = torch.exp(cum[..., -1:] - cum) * dth
     bh = _to_chunks(torch.repeat_interleave(b_, rep, dim=2), chunk)
-    states = torch.einsum("bhcln,bhclp->bhcnp", bh * w[..., None], _to_chunks(x, chunk))
+    wb = _split(bh * w[..., None], split_dtype)
+    states = torch.einsum("bhcln,bhclp->bhcnp", wb, _to_chunks(x, chunk))
     return cum, dth, states
 
 
@@ -596,15 +610,16 @@ def ssd_chunk_scan_ref(
     entering: torch.Tensor,
     d_: torch.Tensor | None,
     chunk: int,
-    intra_dtype: torch.dtype | None = None,
+    split_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Phase 3: y (B, T, H, P) in x's dtype,
     y_i = sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i.H_c + D x_i.
 
     exp is taken of -inf above the diagonal, never of the positive exponent
-    there. ``intra_dtype`` splits the scaled C B^T into two parts of that
+    there. ``split_dtype`` splits the scaled C B^T into two parts of that
     dtype (S rounded, and what the rounding left, rounded again) before the
-    product with x, as the tensor-core instance does with bf16.
+    product with x, and H_c so before the product with C, as the
+    tensor-core instance does with bf16.
     """
     bsz, t, h, p = x.shape
     rep = h // b_.shape[2]
@@ -615,11 +630,9 @@ def ssd_chunk_scan_ref(
     seg = torch.exp(torch.where(live, cum[..., :, None] - cum[..., None, :],
                                 torch.tensor(float("-inf"), device=x.device)))
     s = torch.einsum("bhcln,bhcmn->bhclm", ch, bh) * seg * dth[..., None, :]
-    if intra_dtype is not None:
-        hi = s.to(intra_dtype).float()
-        s = hi + (s - hi).to(intra_dtype).float()
-    y = torch.einsum("bhclm,bhcmp->bhclp", s, xh)
-    y = y + torch.exp(cum)[..., None] * torch.einsum("bhcln,bhcnp->bhclp", ch, entering)
+    y = torch.einsum("bhclm,bhcmp->bhclp", _split(s, split_dtype), xh)
+    inter = torch.einsum("bhcln,bhcnp->bhclp", ch, _split(entering, split_dtype))
+    y = y + torch.exp(cum)[..., None] * inter
     if d_ is not None:
         y = y + d_.float()[None, :, None, None, None] * xh
     y = y.permute(0, 2, 3, 1, 4).reshape(bsz, -1, h, p)[:, :t]
@@ -635,12 +648,15 @@ def ssd_scan_chunked(
     d_: torch.Tensor | None = None,
     *,
     chunk: int = 128,
-    intra_dtype: torch.dtype | None = None,
+    split_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The three phases chained: (y (B,T,H,P) in x's dtype, final state
-    (B,H,N,P) float32), for any T (the last chunk may be short)."""
+    (B,H,N,P) float32), for any T (the last chunk may be short).
+    ``split_dtype`` is the phases' hi/lo split of every operand the
+    tensor-core instance splits (``ssd_chunk_state_ref``,
+    ``ssd_chunk_scan_ref``); no served path sets it."""
     chunk = max(1, min(chunk, x.shape[1]))
-    cum, dth, states = ssd_chunk_state_ref(x, dt, a, b_, chunk)
+    cum, dth, states = ssd_chunk_state_ref(x, dt, a, b_, chunk, split_dtype)
     entering, hf = ssd_state_passing_ref(states, cum)
-    y = ssd_chunk_scan_ref(x, b_, c_, cum, dth, entering, d_, chunk, intra_dtype)
+    y = ssd_chunk_scan_ref(x, b_, c_, cum, dth, entering, d_, chunk, split_dtype)
     return y, hf

@@ -7,11 +7,13 @@ Unlike the Pallas form, the kernel takes any T: the last chunk may be short.
 A call is three launches over (batch*head, chunk), each on the current
 stream: the chunk states, the state passing across chunks, and the chunk
 scan (``PHASES``). The scan has two instances, and :func:`instance` picks
-one by dtype and shape: bf16 with N a multiple of 16 and P in
-``TC_HEAD_DIMS`` runs its products on the tensor cores (``mma.sync`` in
-bf16), everything else on the CUDA cores in float32 (which holds float32's
-3e-4; TF32 would not). ``ref.ssd_scan_chunked`` is the same decomposition in
-plain PyTorch, for the tests.
+one by dtype and shape: bf16 with N in ``TC_STATE_SIZES`` and P in
+``TC_HEAD_DIMS`` runs the products of the chunk state and the chunk scan on
+the tensor cores (``mma.sync`` in bf16, each float32 operand as a hi and a
+lo bf16 part), everything else on the CUDA cores in float32 (which holds
+float32's 3e-4; TF32 would not). ``ref.ssd_scan_chunked`` is the same
+decomposition in plain PyTorch, for the tests (``split_dtype`` mirrors the
+tensor-core instance's splits).
 """
 from __future__ import annotations
 
@@ -22,20 +24,21 @@ from repro_torch.kernels import _build
 launches = 0  # calls that launched the kernels since the last reset
 kernel_launches = 0  # device launches: three a call
 INSTANCES = ("tensor_core", "cuda_core")
-instance_launches = dict.fromkeys(INSTANCES, 0)  # calls per instance of the chunk scan
+instance_launches = dict.fromkeys(INSTANCES, 0)  # calls per instance
 PHASES = ("chunk_state", "state_passing", "chunk_scan")
 
 DTYPES = (torch.float32, torch.bfloat16)  # of x, B, C and y
 TC_HEAD_DIMS = (16, 32, 64, 128)  # P of the tensor-core instance's template instances
+TC_STATE_SIZES = (16, 32, 64, 128)  # and N
 MAX_SHARED_BYTES = 232_448  # one H100 block's shared memory (227 KB)
 MAX_CHUNKS = 65535  # the grid's y extent
 STATE_THREADS = 128  # threads of a chunk-state block (csrc/ssd_scan.cu)
 
 
 def instance(dtype: torch.dtype, n: int, p: int) -> str:
-    """The chunk-scan instance that takes a call of this dtype, state size N
-    and head dim P."""
-    if dtype == torch.bfloat16 and n % 16 == 0 and p in TC_HEAD_DIMS:
+    """The instance (of the chunk state and the chunk scan) that takes a
+    call of this dtype, state size N and head dim P."""
+    if dtype == torch.bfloat16 and n in TC_STATE_SIZES and p in TC_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
 
@@ -50,23 +53,28 @@ def smem_bytes(chunk: int, p: int, n: int,
     phases (state passing takes none) for x, B, C of ``dtype``, as
     ``csrc/ssd_scan.cu`` sizes it, with Lp the chunk rounded up to 16.
 
-    Chunk state: w_j B_j (Lp, N), which later holds the thread groups'
-    partial sums (at least 16 floats a thread), dt and cum, 32 warp totals in
-    float32; x (Lp, P) and B (Lp, N) in ``dtype``, N padded to 4. Chunk scan
-    on the CUDA cores: C^T and B^T (N, Lp), the (N, P) state later in B^T's
-    room, the (Lp, Lp) decay-weighted C B^T, cum and dt in float32, x (Lp, P)
-    in ``dtype``. On the tensor cores: the state,
-    cum and dt in float32, x (Lp, P+8) and B, C (Lp, N+8) in bf16 (rows
-    padded by 16 bytes).
+    On the CUDA cores: the chunk state's w_j B_j (Lp, N), which later holds
+    the thread groups' partial sums (at least 16 floats a thread), dt and
+    cum, 32 warp totals in float32, x (Lp, P) and B (Lp, N) in ``dtype``, N
+    padded to 4; the chunk scan's C^T and B^T (N, Lp), the (N, P) state later
+    in B^T's room, the (Lp, Lp) decay-weighted C B^T, cum and dt in float32,
+    x (Lp, P) in ``dtype``. On the tensor cores (rows of bf16 padded by 16
+    bytes): the chunk state's dt, cum and 32 warp totals in float32, x (Lp,
+    P+8) and B (Lp, N+8); the chunk scan's cum and dt in float32, the state
+    entering the chunk as two bf16 parts (N, P+8), x and B (C is read into
+    registers).
     """
     lp, p4, n4 = _up(chunk, 16), _up(p, 4), _up(n, 4)
     esize = torch.empty((), dtype=dtype).element_size()
-    state = 4 * (max(lp * n4, 16 * STATE_THREADS) + 2 * lp + 32) + esize * (lp * p4 + lp * n4)
     if instance(dtype, n, p) == "tensor_core":
-        scan = 4 * (n * p + 2 * lp) + 2 * (lp * (p + 8) + 2 * lp * (n + 8))
+        state = 4 * (2 * lp + 32) + 2 * (lp * (p + 8) + lp * (n + 8))
+        scan = 4 * 2 * lp + 2 * (2 * n * (p + 8) + lp * (p + 8) + lp * (n + 8))
     else:
+        state = (4 * (max(lp * n4, 16 * STATE_THREADS) + 2 * lp + 32)
+                 + esize * (lp * p4 + lp * n4))
         scan = 4 * (n * lp + n * max(lp, p4) + lp * lp + 2 * lp) + esize * lp * p4
     return {"chunk_state": state, "chunk_scan": scan}
+
 
 
 def ssd_scan_cuda(

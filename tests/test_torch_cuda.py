@@ -502,6 +502,54 @@ def test_flash_attention_tensor_cores_match_plain(dev, b, hq, hkv, tq, tk, d, ca
     assert bool((got[:, :, blind] == 0).all())
 
 
+# the cases of the CUDA-core grid: (tq, tk, causal, window, q_offset)
+CUDA_CORE_CASES = {
+    "causal_ragged": (70, 130, True, None, 60),  # Tq not a multiple of 64, ragged Tk, an offset
+    "not_causal": (100, 200, False, None, 0),
+    "window": (300, 300, True, 100, 0),  # causal and a window, ragged tiles
+    "blind_rows": (70, 40, True, None, -50),  # 50 rows with no live key
+}
+
+
+@pytest.mark.parametrize("case", sorted(CUDA_CORE_CASES))
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.float32, 192), (torch.float32, 256),
+                                     (torch.float32, 16), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 24), (torch.bfloat16, 32)])
+def test_flash_attention_cuda_core_grid(dev, dtype, d, group, case):
+    """The CUDA-core instance (float32 at every D: register-tiled products from
+    D = 64 up; float32 and bf16 one thread a query at D <= 32) over GQA groups
+    of 1, 2 and 8 query heads a KV head, held at float32's 3e-4 (bf16's 3e-2);
+    rows that see no key give 0."""
+    tq, tk, causal, window, qoff = CUDA_CORE_CASES[case]
+    hkv = 2
+    g = torch.Generator(device=dev).manual_seed(d * 1000 + group * 10 + tq)
+    q, k, v = (torch.randn((1, h, t, d), generator=g, device=dev).to(dtype)
+               for h, t in ((hkv * group, tq), (hkv, tk), (hkv, tk)))
+    assert flash_attention.instance(dtype, d) == "cuda_core"
+    before = dict(flash_attention.instance_launches)
+    got = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="cuda")
+    assert flash_attention.instance_launches == {**before, "cuda_core": before["cuda_core"] + 1}
+    want = ops.attention(q, k, v, causal=causal, window=window, q_offset=qoff, impl="torch")
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    qpos = qoff + torch.arange(tq, device=dev)
+    blind = qpos < 0 if causal else torch.zeros_like(qpos, dtype=torch.bool)
+    assert bool((got[:, :, blind] == 0).all())
+
+
+def test_flash_attention_float32_at_gemmas_full_shape(dev):
+    """gemma-2b's prefill attention, (2, 8 over 1, 2048, 256) float32, causal:
+    32 q-blocks of 64 a head, the heaviest launched first."""
+    g = torch.Generator(device=dev).manual_seed(256)
+    q = torch.randn((2, 8, 2048, 256), generator=g, device=dev)
+    k, v = (torch.randn((2, 1, 2048, 256), generator=g, device=dev) for _ in range(2))
+    got = ops.attention(q, k, v, impl="cuda")
+    want = ops.attention(q, k, v, impl="torch")
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
 def test_flash_attention_cuda_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 2, 4, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -603,6 +651,32 @@ def test_ssd_scan_tensor_cores_strong_decay(dev):
     y, hf = ops.ssd_scan(x, dt, a, bm, cm, None, impl="cuda", chunk=128)
     yr, hr = ops.ssd_scan(x, dt, a, bm, cm, None, impl="torch")
     assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize(
+    "b,t,h,p,g,n,decay",
+    [(1, 300, 4, 64, 1, 128, False),  # mamba2's head, a ragged last chunk of 44
+     (2, 256, 4, 64, 2, 128, False),  # two B/C groups
+     (1, 256, 2, 64, 1, 128, True),  # dt = 2, a = -20: exp(-5080) within a chunk
+     (1, 200, 4, 32, 2, 64, False),  # N = 64, P = 32, G = 2, ragged
+     (1, 130, 2, 128, 1, 128, False)],  # P = 128 at N = 128, a last chunk of 2
+)
+def test_ssd_scan_tensor_cores_at_state_size_128(dev, b, t, h, p, g, n, decay):
+    """The tensor-core chunk state and chunk scan at mamba2-2.7b's N = 128 (and
+    N = 64): y at bf16's 3e-2 and the float32 state at 3e-4 against the plain
+    recurrence; under strong decay nothing overflows."""
+    args = list(_ssd_inputs(dev, torch.bfloat16, b, t, h, p, g, n, seed=t + n + g))
+    if decay:
+        args[1] = torch.full((b, t, h), 2.0, device=dev)
+        args[2] = torch.full((h,), -20.0, device=dev)
+    assert ssd_scan.instance(torch.bfloat16, n, p) == "tensor_core"
+    before = dict(ssd_scan.instance_launches)
+    y, hf = ops.ssd_scan(*args, impl="cuda", chunk=128)
+    assert ssd_scan.instance_launches == {**before, "tensor_core": before["tensor_core"] + 1}
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(hf).all())
+    yr, hr = ops.ssd_scan(*args, impl="torch")
     torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2, atol=3e-2)
     torch.testing.assert_close(hf, hr, rtol=3e-4, atol=3e-4)
 

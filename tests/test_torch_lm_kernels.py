@@ -40,6 +40,8 @@ def _bf16(a):
         (1, 4, 2, 40, 40, 24, True, None, 0, 16, 16),  # ragged blocks
         (1, 4, 1, 48, 48, 256, True, None, 0, 16, 16),  # gemma-2b's head_dim, MQA
         (1, 2, 2, 40, 40, 192, True, None, 0, 16, 8),  # MLA's scoring head_dim, ragged
+        (1, 8, 1, 48, 48, 128, False, None, 0, 16, 16),  # 8 query heads over 1, not causal
+        (1, 4, 2, 32, 64, 64, True, 16, 32, 16, 16),  # a window behind a query offset
     ],
 )
 def test_attention_matches_reference_and_pallas(b, hq, hkv, tq, tk, d, causal, window, qoff,

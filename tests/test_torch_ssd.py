@@ -101,14 +101,14 @@ def test_chunked_strong_decay_stays_finite():
 
 
 def test_bf16_rounding_budget_at_hymbas_head_shape():
-    """P = 64, N = 16, chunk 128, bf16 inputs, the scaled C B^T split into
-    two bf16 parts before the product with x, as the tensor-core instance
-    splits it: y within bf16's 3e-2 of the float32 recurrence, the state
-    within 3e-4 (phase 1 keeps it in float32)."""
+    """P = 64, N = 16, chunk 128, bf16 inputs, the scaled C B^T, w_j B_j and
+    the state entering a chunk each split into two bf16 parts before their
+    products, as the tensor-core instance splits them: y within bf16's 3e-2
+    of the float32 recurrence, the state within 3e-4."""
     x, dt, a, bm, cm, d = _inputs(1, 256, 4, 64, 1, 16, seed=64)
     xb, bb, cb = (_t(v).to(torch.bfloat16) for v in (x, bm, cm))
     y, hf = ref.ssd_scan_chunked(xb, _t(dt), _t(a), bb, cb, _t(d), chunk=128,
-                                 intra_dtype=torch.bfloat16)
+                                 split_dtype=torch.bfloat16)
     assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
     yr, hr = ref.ssd_scan_ref(xb.float(), _t(dt), _t(a), bb.float(), cb.float(), _t(d))
     y_err = float((y.float() - yr).abs().max())
@@ -129,23 +129,34 @@ def test_bf16_rounding_budget_at_hymbas_head_shape():
      (torch.bfloat16, 16, 128, "tensor_core"),
      (torch.bfloat16, 8, 16, "cuda_core"), (torch.bfloat16, 4, 8, "cuda_core"),
      (torch.bfloat16, 16, 48, "cuda_core"), (torch.bfloat16, 16, 256, "cuda_core"),
-     (torch.float32, 16, 64, "cuda_core"), (torch.float32, 8, 16, "cuda_core")],
+     (torch.float32, 16, 64, "cuda_core"), (torch.float32, 8, 16, "cuda_core"),
+     (torch.bfloat16, 128, 64, "tensor_core"),  # mamba2-2.7b
+     (torch.bfloat16, 64, 32, "tensor_core"),
+     (torch.bfloat16, 48, 64, "cuda_core"), (torch.bfloat16, 256, 64, "cuda_core"),
+     (torch.float32, 128, 64, "cuda_core")],
 )
 def test_ssd_instance_routing(dtype, n, p, want):
-    """bf16 with N a multiple of 16 and P a template instance takes the
-    tensor cores; float32 (held at 3e-4, which TF32 would not hold) and the
-    small card-test shapes keep the CUDA cores."""
+    """bf16 with N and P template instances takes the tensor cores; float32
+    (held at 3e-4, which TF32 would not hold) and the small card-test shapes
+    keep the CUDA cores."""
     assert ssd_mod.instance(dtype, n, p) == want
+
+
+def _blocks_per_sm(nbytes: int) -> int:
+    """Blocks of ``nbytes`` dynamic shared memory that one H100 SM holds at
+    once: 233,472 bytes (228 KB), of which each block reserves 1 KB."""
+    return 233_472 // (nbytes + 1024)
 
 
 def test_ssd_phase_shared_memory_at_the_path_shape():
     """chunk 128, P 64, N 16: every phase fits a block in both dtypes, the
-    bf16 tensor-core scan in 35,840 bytes (several blocks an SM); the
-    float32 CUDA-core scan keeps the state in B^T's room once G is made; at
-    chunk 256 its (Lp, Lp) tile does not fit."""
+    bf16 tensor-core phases in 25,728 and 30,208 bytes (several blocks an
+    SM); the float32 CUDA-core scan keeps the state in B^T's room once G is
+    made; at chunk 256 its (Lp, Lp) tile does not fit."""
     bf16 = ssd_mod.smem_bytes(128, 64, 16, torch.bfloat16)
     f32 = ssd_mod.smem_bytes(128, 64, 16, torch.float32)
-    assert bf16 == {"chunk_state": 29_824, "chunk_scan": 35_840}
+    assert bf16 == {"chunk_state": 25_728, "chunk_scan": 30_208}
+    assert min(map(_blocks_per_sm, bf16.values())) >= 5
     assert f32 == {"chunk_state": 50_304, "chunk_scan": 115_712}
     assert max(f32.values()) <= ssd_mod.MAX_SHARED_BYTES
     assert ssd_mod.smem_bytes(256, 64, 16)["chunk_scan"] > ssd_mod.MAX_SHARED_BYTES
@@ -154,12 +165,16 @@ def test_ssd_phase_shared_memory_at_the_path_shape():
 
 
 def test_ssd_phase_shared_memory_at_mamba2s_state_size():
-    """mamba2-2.7b: chunk 128, P 64, N 128. The bf16 tensor-core phases fit at
-    one block an SM; the float32 CUDA-core scan fits only because the state
-    shares B^T's room (263,168 bytes in separate rooms)."""
+    """mamba2-2.7b: chunk 128, P 64, N 128. The bf16 tensor-core chunk state
+    (x, B, dt and cum) fits four blocks an SM and the chunk scan (H's two
+    bf16 parts, x, B, cum and dt; C is read into registers) two; the float32
+    CUDA-core scan fits only because the state shares B^T's room (263,168
+    bytes in separate rooms)."""
     bf16 = ssd_mod.smem_bytes(128, 64, 128, torch.bfloat16)
     f32 = ssd_mod.smem_bytes(128, 64, 128, torch.float32)
-    assert bf16 == {"chunk_state": 115_840, "chunk_scan": 121_856}
+    assert bf16 == {"chunk_state": 54_400, "chunk_scan": 91_136}
+    assert _blocks_per_sm(bf16["chunk_state"]) == 4
+    assert _blocks_per_sm(bf16["chunk_scan"]) == 2
     assert f32 == {"chunk_state": 164_992, "chunk_scan": 230_400}
     assert max(f32.values()) <= ssd_mod.MAX_SHARED_BYTES < 263_168
 
@@ -183,3 +198,34 @@ def test_chunked_at_mamba2s_state_size_matches_jax(t):
         yp, hp = ssd_scan_pallas(*jargs, chunk=128, interpret=True)
         np.testing.assert_allclose(y.numpy(), yp, rtol=TOL, atol=TOL)
         np.testing.assert_allclose(hf.numpy(), hp, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("t", [256, 200])
+def test_bf16_split_route_at_mamba2s_state_size(t):
+    """N = 128, P = 64, chunk 128, bf16 inputs, a whole and a ragged last
+    chunk, with the tensor-core instance's three splits (w_j B_j, the state
+    entering a chunk, the scaled C B^T): the final state within 3e-4 and y
+    within bf16's 3e-2 of the sequential recurrence and, at whole chunks, of
+    the JAX package's chunked reference; each split moves the state by no
+    more than what the rounding leaves (about 2^-16 relative)."""
+    x, dt, a, bm, cm, d = _inputs(1, t, 2, 64, 1, 128, seed=t + 1)
+    xb, bb, cb = (_t(v).to(torch.bfloat16) for v in (x, bm, cm))
+    y, hf = ref.ssd_scan_chunked(xb, _t(dt), _t(a), bb, cb, _t(d), chunk=128,
+                                 split_dtype=torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
+    exact = [v.float() for v in (xb, bb, cb)]  # the bf16 inputs, widened
+    yr, hr = ref.ssd_scan_ref(exact[0], _t(dt), _t(a), exact[1], exact[2], _t(d))
+    torch.testing.assert_close(hf, hr, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(y.float(), yr, rtol=BF16_TOL, atol=BF16_TOL)
+    if t % 128 == 0:
+        jargs = [jnp.asarray(v.numpy()) for v in (exact[0], _t(dt), _t(a), exact[1], exact[2],
+                                                  _t(d))]
+        yj, hj = jref.ssd_scan_chunked_ref(*jargs, chunk=128)
+        np.testing.assert_allclose(hf.numpy(), hj, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(y.float().numpy(), yj, rtol=BF16_TOL, atol=BF16_TOL)
+    # phase by phase: the split state against the unsplit one
+    cum, dth, s_split = ref.ssd_chunk_state_ref(xb, _t(dt), _t(a), bb, 128,
+                                                split_dtype=torch.bfloat16)
+    _, _, s_exact = ref.ssd_chunk_state_ref(xb, _t(dt), _t(a), bb, 128)
+    gap = float((s_split - s_exact).abs().max())
+    assert 0.0 < gap <= 2.0**-14 * float(s_exact.abs().max())
