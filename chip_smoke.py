@@ -74,6 +74,17 @@ Phases, each fatal on failure:
      runs the plain attention), the saved state restored leaf for leaf bit
      for bit, a ``--restore`` run to step 30, and one float32 train step at
      full width, 2 layers, on the card against the CPU;
+  9b. the reference's chunked route (``attn_impl="chunked"``: online-softmax
+     attention over key chunks and the chunked SSD scan, plain torch): the
+     prefill of qwen3-0.6b (and of mamba2-2.7b) at full width and depth in
+     bf16, 2 x 2048 tokens, on the kernel, chunked (and plain) routes, every
+     layer's attention (SSD scan) call on the kernel route held against the
+     chunked route on the same inputs, qwen3's logits and decisive greedy
+     tokens held against the kernel route's, each route's prefill time and
+     peak memory; then qwen3-0.6b trained at phase 9's size, 10 steps a
+     block from the same seed on the plain and the chunked routes in turns,
+     their losses at steps 0 and 9 held together, the loss falling, and no
+     kernel launched (counters set to 0 just before, read just after);
   10. the multi-device machinery: (a) ``launch.serve.main`` and
      ``launch.train.main`` for qwen3-0.6b at full width and depth on their
      one-rank mesh (a process group of one rank, ``nccl``; every sharding
@@ -200,6 +211,27 @@ TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "20", "--batch", "2", "--seq", 
 TRAIN_RESTORED_STEPS = 30
 TRAIN_E2E = dict(layers=2, batch=2, seq=512)
 TRAIN_LOSS_TOL, TRAIN_NORM_RTOL = 1e-4, 1e-3
+# Phase 9b, the reference's chunked route (attn_impl="chunked": online-softmax
+# attention over key chunks of 4 x block_k = 512 keys and the chunked SSD
+# scan, plain torch in float32, no kernel). (a) qwen3-0.6b's prefill at full
+# width and depth in bf16 at phase 7b's size (2 x 2048) on the kernel route,
+# the chunked route and the plain one: every layer's attention held, chunked
+# against the kernel on the path's own inputs, at the bf16 attention
+# tolerance; then in float32 at full depth, the chunked route's prefill
+# logits within E2E_LOGIT_TOL of the kernel route's and its decisive greedy
+# tokens equal (float32_end_to_end). The bf16 logits are reported, not held:
+# after 28 bf16 layers any two routes differ by a few bf16 ulps (0.0234 on
+# an H100, the chunked route against the plain one as against the kernel).
+# (b) mamba2-2.7b's prefill alike: every layer's SSD y and final state at
+# the SSD's bf16 tolerance, then float32 end to end at full depth (its bf16
+# logits, 64 layers deep, differ by about 1 on an H100). (c) qwen3-0.6b
+# trained at phase 9's size, dtype, learning rate and seed through
+# make_train_step, CHUNKED_TRAIN_STEPS steps a block from a fresh state, the
+# blocks in turns (plain, chunked, chunked, plain): the losses at steps 0 and
+# 9 within MESH_LOSS_TOL of each other, the loss falling, no kernel launch.
+CHUNKED_PREFILL_REPS = 5
+CHUNKED_TRAIN_STEPS = 10
+CHUNKED_TRAIN_ORDER = ("torch", "chunked", "chunked", "torch")
 CCL_WORST = (4095, 4096)  # CCL's worst cases: a serpentine and a full mask through every tile
 # Phase 4c, the near-data chains: the gateways' stores on 4 DMS servers in 2
 # processes behind the shm transport; a derived-cache budget that holds a
@@ -637,6 +669,9 @@ def main() -> None:
 
     # -- 9. training ---------------------------------------------------------------
     train_phases(torch, dev, sync)
+
+    # -- 9b. the chunked route ------------------------------------------------------
+    chunked_phases(torch, dev, time_ms, sync)
 
     # -- 10. the multi-device machinery ----------------------------------------------
     mesh_phases(torch, dev, sync)
@@ -1580,10 +1615,12 @@ def lm_phases(torch, dev, time_ms, sync, wsi_modules) -> tuple[dict, dict]:
     return rec, lm_launches
 
 
-def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str, frames=None):
+def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str, frames=None,
+                       other: str = "torch"):
     """Prefill ``prompt`` (behind ``prefix``, if any; after an encoder pass
     over ``frames``, for an encoder-decoder) on the kernels
-    (``cfg32``) and on the plain versions (``attn_impl="torch"``), then
+    (``cfg32``) and on the plain versions (``attn_impl=other``: "torch", or
+    "chunked", the reference's chunked route), then
     E2E_DECODE_STEPS decode steps fed the plain path's greedy tokens (teacher
     forcing); fails unless the prefill logits agree within E2E_LOGIT_TOL and
     every decisive greedy token (top-two margin above it) is the same.
@@ -1599,7 +1636,8 @@ def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str, fr
     enc_len = 64 if frames is None else frames.shape[1]
     if frames is not None:
         batch["frames"] = frames
-    paths = (("kernels", cfg32), ("plain", cfg32.replace(attn_impl="torch")))
+    plain = "plain" if other == "torch" else other
+    paths = (("kernels", cfg32), (plain, cfg32.replace(attn_impl=other)))
     steps, caches = {}, {}
     with torch.no_grad():
         for name, c in paths:
@@ -1611,26 +1649,27 @@ def float32_end_to_end(torch, sync, model, cfg32, prompt, prefix, label: str, fr
             steps[name] = [logits[:, -1]]
             print(f"{label} float32 prefill ({name}) in {time.perf_counter() - t0:.3f} s",
                   flush=True)
-        logit_err = (steps["kernels"][0] - steps["plain"][0]).abs().max().item()
-        if not torch.allclose(steps["kernels"][0], steps["plain"][0],
+        logit_err = (steps["kernels"][0] - steps[plain][0]).abs().max().item()
+        if not torch.allclose(steps["kernels"][0], steps[plain][0],
                               rtol=E2E_LOGIT_TOL, atol=E2E_LOGIT_TOL):
-            fail(f"{label} float32 prefill logits: kernels against plain max |err| {logit_err}")
-        tok = torch.argmax(steps["plain"][0], dim=-1)[:, None].to(torch.int32)
+            fail(f"{label} float32 prefill logits: kernels against {plain} max |err| "
+                 f"{logit_err}")
+        tok = torch.argmax(steps[plain][0], dim=-1)[:, None].to(torch.int32)
         for i in range(E2E_DECODE_STEPS):
             for name, c in paths:
                 logits, caches[name] = make_decode_step(c)(model, tok, caches[name],
                                                            t + offset + i)
                 steps[name].append(logits[:, -1])
-            tok = torch.argmax(steps["plain"][-1], dim=-1)[:, None].to(torch.int32)
+            tok = torch.argmax(steps[plain][-1], dim=-1)[:, None].to(torch.int32)
     checked = differ = 0
-    for lk, lp in zip(steps["kernels"], steps["plain"]):
+    for lk, lp in zip(steps["kernels"], steps[plain]):
         top2 = torch.topk(lp, 2, dim=-1).values
         decisive = (top2[:, 0] - top2[:, 1]) > E2E_LOGIT_TOL
         same = torch.argmax(lk, dim=-1) == torch.argmax(lp, dim=-1)
         checked += int(decisive.sum())
         differ += int((decisive & ~same).sum())
     decode_err = max((lk - lp).abs().max().item()
-                     for lk, lp in zip(steps["kernels"], steps["plain"]))
+                     for lk, lp in zip(steps["kernels"], steps[plain]))
     print(f"{label} float32 end to end: prefill logits max |err| {logit_err:.3g} "
           f"(tolerance {E2E_LOGIT_TOL}), decode logits max |err| {decode_err:.3g}; greedy "
           f"tokens over 1 + {E2E_DECODE_STEPS} steps: {checked} decisive, {differ} differ",
@@ -2138,6 +2177,188 @@ def train_phases(torch, dev, sync) -> None:
     del cpu, card, model
     torch.cuda.empty_cache()
 
+
+
+def chunked_phases(torch, dev, time_ms, sync) -> None:
+    """Phase 9b: the chunked route in qwen3-0.6b's and mamba2-2.7b's prefill
+    and in qwen3-0.6b's training, against the kernel and plain routes (see
+    the constants); one JSON line a part, tagged ``"chunked"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models import LM
+    from repro_torch.serve import make_cache, make_prefill_step
+    from repro_torch.train import AdamW, AdamWConfig, cosine_lr, init_state, make_train_step
+
+    def flag(argv: list, name: str) -> int:
+        return int(argv[argv.index(name) + 1])
+
+    def reset_counts() -> None:
+        fa_mod.launches = fa_mod.swa_launches = 0
+        fa_mod.instance_launches.update(dict.fromkeys(fa_mod.INSTANCES, 0))
+        ssd_mod.launches = ssd_mod.kernel_launches = 0
+        ssd_mod.instance_launches.update(dict.fromkeys(ssd_mod.INSTANCES, 0))
+
+    def counts() -> dict:
+        return {"flash_attention": fa_mod.launches, "ssd_scan": ssd_mod.launches}
+
+    b, t = flag(FAMILY_ARGV, "--batch"), flag(FAMILY_ARGV, "--prompt-len")
+    impls = {"kernels": "auto", "chunked": "chunked", "plain": "torch"}
+
+    def prefill_routes(arch: str, op: str, tol: float, routes: tuple) -> None:
+        """Prefill ``arch`` in bf16 on each of ``routes``: each route's
+        launches, peak and prefill time; every call of ``ops.<op>`` on the
+        kernel route held against the chunked route on the same inputs; the
+        chunked route's logits and greedy tokens against the other routes'
+        reported. Then the chunked route held end to end in float32."""
+        cfg = get_config(arch)
+        model = LM(cfg, device=dev, seed=0)
+        prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (b, t)),
+                                 dtype=torch.int32, device=dev)
+        batch = {"tokens": prompt}
+        cfgs = {r: cfg.replace(attn_impl=impls[r]) for r in routes}
+        caches = {r: make_cache(cfgs[r], b, t + 1, device=dev) for r in routes}
+        steps = {r: make_prefill_step(cfgs[r]) for r in routes}
+        # every layer's call on the kernel route, against the chunked route
+        orig, held = getattr(ops, op), []
+
+        def holding(*args, **kw):  # one entry a call: (max |err|, within tol)
+            out = orig(*args, **kw)
+            alt = orig(*args, **{**kw, "impl": "chunked"})
+            pairs = list(zip(out, alt)) if op == "ssd_scan" else [(out, alt)]  # y, state
+            held.append((max((g.float() - w.float()).abs().max().item() for g, w in pairs),
+                         all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+                             for g, w in pairs)))
+            return out
+
+        setattr(ops, op, holding)
+        try:
+            with torch.no_grad():
+                steps["kernels"](model, batch, caches["kernels"])
+        finally:
+            setattr(ops, op, orig)
+        sync()
+        logits, launches, peak, ms = {}, {}, {}, {}
+        with torch.no_grad():
+            for r in routes:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                reset_counts()
+                sync()
+                logits[r] = steps[r](model, batch, caches[r])[0][:, -1].float()
+                sync()
+                launches[r], peak[r] = counts(), torch.cuda.max_memory_allocated()
+                peak[r] = {"peak_bytes": peak[r], "above_resident_bytes": peak[r] - resident}
+                ms[r] = time_ms(lambda r=r: steps[r](model, batch, caches[r]),
+                                CHUNKED_PREFILL_REPS, warmup=0)
+        err = {f"chunked_vs_{r}": (logits["chunked"] - logits[r]).abs().max().item()
+               for r in routes if r != "chunked"}
+        top2 = torch.topk(logits["kernels"], 2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > tol
+        same = torch.argmax(logits["chunked"], -1) == torch.argmax(logits["kernels"], -1)
+        differ = int((decisive & ~same).sum())
+        print(json.dumps({
+            "chunked": f"{arch} prefill", "shape": [b, t], "dtype": str(cfg.compute_dtype),
+            "prefill_ms": ms, "memory": peak, "launches": launches,
+            f"{op}_calls_held": len(held), f"{op}_max_abs_err": max(e for e, _ in held),
+            "tolerance": tol, "logits_max_abs_err": err,
+            "greedy_decisive": int(decisive.sum()), "greedy_differ": differ,
+            "nvidia_smi": nvidia_smi()}), flush=True)
+        kernel = "flash_attention" if op == "attention" else "ssd_scan"
+        if len(held) != cfg.num_layers or not all(ok for _, ok in held):
+            fail(f"phase 9b: {arch}'s {op} on the kernel route against the chunked route "
+                 f"over {len(held)} calls (not {cfg.num_layers}): max |err| "
+                 f"{max(e for e, _ in held)} (tolerance {tol})")
+        if launches["kernels"][kernel] != cfg.num_layers or any(
+                launches[r][k] for r in routes if r != "kernels" for k in launches[r]):
+            fail(f"phase 9b: {arch}'s prefill launched {launches}: {kernel} once a layer on "
+                 f"the kernel route only")
+        if not bool(torch.isfinite(logits["chunked"]).all()) or logits["chunked"].shape != (
+                b, cfg.vocab):
+            fail(f"phase 9b: {arch}'s chunked prefill logits: shape "
+                 f"{tuple(logits['chunked'].shape)} or non-finite values")
+        del model, caches, logits
+        torch.cuda.empty_cache()
+        # end to end in float32 at full depth: the chunked route's prefill
+        # logits and decisive greedy tokens against the kernel route's
+        cfg32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+        model = LM(cfg32, device=dev, seed=0)
+        reset_counts()
+        _, f32_err = float32_end_to_end(torch, sync, model, cfg32, prompt, None,
+                                        f"phase 9b: {arch}, full depth", other="chunked")
+        got, want = counts(), {"flash_attention": 0, "ssd_scan": 0, kernel: cfg.num_layers}
+        print(json.dumps({"chunked": f"{arch} float32 end to end", "shape": [b, t],
+                          "logits_max_abs_err": f32_err, "tolerance": E2E_LOGIT_TOL,
+                          "launches": got}), flush=True)
+        if got != want:
+            fail(f"phase 9b: {arch}'s float32 prefills launched {got}, not {want} (once a "
+                 f"layer on the kernel route only)")
+        del model
+        torch.cuda.empty_cache()
+
+    # -- (a) attention: qwen3-0.6b; (b) the SSD scan: mamba2-2.7b -----------------------
+    # (the plain SSD scan steps 2048 positions in Python a layer: left out)
+    prefill_routes(MESH_ARCH, "attention", ATTN_TOLS["bf16"], ("kernels", "chunked", "plain"))
+    prefill_routes("mamba2-2.7b", "ssd_scan", SSD_TOLS["bf16"], ("kernels", "chunked"))
+
+    # -- (c) training on the plain and the chunked routes, in turns ----------------------
+    cfg = get_config(TRAIN_ARGV[TRAIN_ARGV.index("--arch") + 1])
+    bsz, seq = flag(TRAIN_ARGV, "--batch"), flag(TRAIN_ARGV, "--seq")
+    lr = float(TRAIN_ARGV[TRAIN_ARGV.index("--lr") + 1])
+    total = flag(TRAIN_ARGV, "--steps")  # phase 9's schedule: the same warmup steps
+    optim = AdamW(AdamWConfig(lr=lr))
+    sched = lambda s: cosine_lr(s, base=lr, warmup=10, total=total)  # noqa: E731
+    source = SyntheticTokens(cfg.vocab, seq, bsz, seed=0, num_steps=CHUNKED_TRAIN_STEPS)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(i).items()}
+               for i in range(CHUNKED_TRAIN_STEPS)]
+    blocks = []
+    reset_counts()
+    for impl in CHUNKED_TRAIN_ORDER:
+        c = cfg.replace(attn_impl=impl)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(c, optim, seed=0, device=dev)
+        step_fn = make_train_step(c, optim, lr_schedule=sched)
+        losses, step_ms = [], []
+        for i in range(CHUNKED_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches[i])
+            losses.append(float(metrics["loss"]))  # waits for the step
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        blocks.append({"attn_impl": impl, "losses": losses, "step_ms": step_ms,
+                       "median_step_ms": float(np.median(step_ms[1:])),
+                       "peak_bytes": torch.cuda.max_memory_allocated()})
+        del state, step_fn, metrics
+    launched = counts()
+    torch.cuda.empty_cache()
+    by = {impl: [blk for blk in blocks if blk["attn_impl"] == impl]
+          for impl in ("torch", "chunked")}
+    last = CHUNKED_TRAIN_STEPS - 1
+    errs = {str(i): max(abs(x["losses"][i] - y["losses"][i])
+                        for x in by["chunked"] for y in by["torch"]) for i in (0, last)}
+    print(json.dumps({
+        "chunked": f"{cfg.name} train", "tokens": [bsz, seq], "lr": lr,
+        "order": list(CHUNKED_TRAIN_ORDER),
+        "median_step_ms": {k: [blk["median_step_ms"] for blk in v] for k, v in by.items()},
+        "peak_bytes": {k: [blk["peak_bytes"] for blk in v] for k, v in by.items()},
+        "loss": {k: [{str(i): blk["losses"][i] for i in (0, last)} for blk in v]
+                 for k, v in by.items()},
+        "loss_abs_err": errs, "tolerance": MESH_LOSS_TOL, "kernel_launches": launched,
+        "step_ms": {k: [blk["step_ms"] for blk in v] for k, v in by.items()},
+        "nvidia_smi": nvidia_smi()}), flush=True)
+    for blk in blocks:
+        if not all(np.isfinite(blk["losses"])) or not blk["losses"][last] < blk["losses"][0]:
+            fail(f"phase 9b: training on {blk['attn_impl']}: the loss did not fall or is not "
+                 f"finite: {blk['losses']}")
+    if max(errs.values()) > MESH_LOSS_TOL:
+        fail(f"phase 9b: the chunked route's losses off the plain route's by {errs} "
+             f"(tolerance {MESH_LOSS_TOL})")
+    if any(launched.values()):
+        fail(f"phase 9b: training launched kernels {launched}; both routes are plain torch")
 
 
 def mesh_phases(torch, dev, sync) -> None:

@@ -8,7 +8,15 @@ components, GLCM) and the LM path's two (flash attention, SSD scan).
                   hand-written kernel, a CPU tensor takes the plain version;
   * ``"cuda"``  — the kernel; a CPU tensor is an error;
   * ``"torch"`` — the plain PyTorch version (``ref``) on any device, the
-                  comparison that ``chip_smoke.py`` holds each kernel against.
+                  comparison that ``chip_smoke.py`` holds each kernel against;
+  * ``"chunked"`` — attention and the SSD scan only: the reference's plain
+                  chunked route on any device (``ref.attention_chunked``,
+                  online softmax over key chunks that never builds the
+                  (Tq, Tk) scores; ``ref.ssd_scan_chunked``, float32
+                  throughout). It launches no kernel.
+An impl that an op does not take raises ``ValueError``: the four WSI ops
+refuse ``"chunked"`` (the reference's ``_resolve`` treats any string but
+``"pallas"`` as its plain path; the port names what each op takes).
 A kernel that fails to build or launch raises; nothing falls back. The
 kernels have no backward: a CUDA route refuses a tensor that autograd is
 recording (``_build.require``), so training runs the plain versions
@@ -28,7 +36,7 @@ from repro_torch.kernels.glcm import glcm_cuda
 from repro_torch.kernels.morph_recon import morph_recon_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-IMPLS = ("auto", "cuda", "torch")
+IMPLS = ("auto", "cuda", "torch")  # every op; attention and the SSD scan also "chunked"
 
 
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -127,7 +135,12 @@ def attention(
     (tensor cores, bf16 at D = 64 and 128; CUDA cores, float32 from D = 64
     up), 32 keys (tensor cores, bf16 at D = 192 and 256, where registers and
     shared memory bound the tile) or 32 keys (CUDA cores, D <= 32).
+    ``impl="chunked"`` scans key chunks of ``4 * block_k``, as the
+    reference's chunked route does.
     """
+    if impl == "chunked":
+        return ref.attention_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                     chunk=4 * block_k)
     if _use_kernel(impl, q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return ref.attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
@@ -149,7 +162,10 @@ def ssd_scan(
     kernel's chunk length (the plain version steps one position at a time).
     On the meta device (the dry run) the plain version is the chunked one,
     ``ref.ssd_scan_chunked``, the same function: stepping would trace T
-    steps in Python and compute nothing."""
+    steps in Python and compute nothing. ``impl="chunked"`` takes
+    ``ref.ssd_scan_chunked`` on any device, float32 throughout."""
+    if impl == "chunked":
+        return ref.ssd_scan_chunked(x, dt, a, b_, c_, d_, chunk=chunk)
     if _use_kernel(impl, x):
         return ssd_scan_cuda(x, dt, a, b_, c_, d_, chunk=chunk)
     if x.device.type == "meta":

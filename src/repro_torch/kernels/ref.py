@@ -505,6 +505,68 @@ def attention_ref(
     return torch.einsum("bhqk,bhkd->bhqd", probs, vr.float()).to(q.dtype)
 
 
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int = 0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over key chunks (``repro.kernels.ref.
+    attention_chunked_ref``): the (Tq, Tk) scores are never built, only a
+    (Tq, chunk) block at a time, with the running max, sum and accumulator
+    carried in float32 from chunk to chunk.
+
+    q/k: (B, Hq|Hkv, T, D); v: (B, Hkv, Tk, Dv); returns (B, Hq, Tq, Dv) in
+    q's dtype. GQA is a grouped einsum (no repeated K/V in memory). K and V
+    are padded with zeros to whole chunks and the padded keys masked. The
+    fill is -1e30, not -inf, and a row with no visible key gives 0 by the
+    ``l > 0`` guard, as in the reference. One difference: the accumulator
+    takes v's head dim, not q's, so MLA's v runs under a wider q/k (the
+    reference reshapes v with q's head dim and raises there).
+    """
+    b, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    chunk = min(chunk, tk)
+    n_chunks = -(-tk // chunk)
+    pad = n_chunks * chunk - tk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, tq, d).to(f32)
+    qpos = q_offset + torch.arange(tq, device=q.device)
+    m = torch.full((b, hkv, g, tq), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((b, hkv, g, tq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, hkv, g, tq, dv), dtype=f32, device=q.device)
+    for ci in range(n_chunks):
+        kb = k[:, :, ci * chunk:(ci + 1) * chunk].to(f32)
+        vb = v[:, :, ci * chunk:(ci + 1) * chunk].to(f32)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kb) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        mask = (kpos < tk)[None, :]
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window is not None:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqc,bkcd->bkgqd", p, vb)
+        m = m_new
+    out = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    return out.reshape(b, hq, tq, dv).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 # Mamba2 SSD scan (LM path)
 # --------------------------------------------------------------------------

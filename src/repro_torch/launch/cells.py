@@ -7,7 +7,9 @@ inputs as meta-device tensors laid out on the mesh (``DTensor`` s; plain
 meta tensors on a trivial mesh), and their placements. Nothing is
 allocated: every tensor is on the meta device, and the model runs its plain
 attention and SSD scan (``attn_impl="torch"``), as the reference's dry run
-takes its plain ``"xla"`` path.
+takes its plain ``"xla"`` path, or the reference's chunked route
+(``attn_impl="chunked"``: online softmax over key chunks and the chunked
+SSD scan).
 """
 from __future__ import annotations
 
@@ -91,9 +93,9 @@ def build_cell(
     cfg = get_config(arch).replace(attn_impl="torch")
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    if cfg.attn_impl != "torch":
+    if cfg.attn_impl not in ("torch", "chunked"):
         raise ValueError(f"attn_impl {cfg.attn_impl!r}: meta tensors launch no kernel; "
-                         "the dry run takes 'torch'")
+                         "the dry run takes 'torch' or 'chunked'")
     shape = SHAPES[shape_name]
     ok, why = cell_supported(cfg, shape_name)
     if not ok:

@@ -12,6 +12,7 @@ starts no process group.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape train_4k --mesh multi --attn-impl chunked
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list
 
 Artifacts: artifacts/dryrun/<arch>__<shape>__<mesh>.json with the
@@ -162,13 +163,14 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
-    ap.add_argument("--all", action="store_true", help="run every supported cell")
+    ap.add_argument("--all", action="store_true",
+                    help="run every supported cell (of --arch and --shape where given)")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--skip-hlo", action="store_true", help="trace without the cost counter")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--attn-impl", default=None, choices=["torch"])
+    ap.add_argument("--attn-impl", default=None, choices=["torch", "chunked"])
     ap.add_argument("--remat", default=None, choices=["none", "dots", "full"])
     ap.add_argument("--moe-groups", type=int, default=None)
     ap.add_argument("--seq-shard-cache", action="store_true")
@@ -197,7 +199,8 @@ def main(argv=None) -> None:
 
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     if args.all:
-        cells = [(a, s) for a, s, ok, _ in all_cells() if ok]
+        cells = [(a, s) for a, s, ok, _ in all_cells()
+                 if ok and args.arch in (None, a) and args.shape in (None, s)]
     else:
         if not args.arch or not args.shape:
             ap.error("--arch and --shape required unless --all/--list")

@@ -4,7 +4,8 @@ One dataclass describes every family the reference has, and the port runs
 them all: the decoder-only ones (``models.transformer``) and ``encdec``
 (``models.encdec``). Exact per-architecture
 values live in ``repro_torch.configs``. Dtypes are ``torch.dtype``s, and
-``attn_impl`` takes the port's kernel choices (``kernels.ops``).
+``attn_impl`` takes the port's choices for attention and the SSD scan
+(``kernels.ops``): auto | cuda | torch | chunked.
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ class ModelConfig:
     # -- numerics & runtime ----------------------------------------------------------
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
-    attn_impl: str = "auto"  # auto | cuda | torch (kernels.ops)
+    attn_impl: str = "auto"  # auto | cuda | torch | chunked (kernels.ops)
     remat: str = "dots"  # none | dots | full (training; unused by serving)
     scan_layers: bool = True
 

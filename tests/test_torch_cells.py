@@ -3,7 +3,8 @@
 architecture's train and decode cells build, their argument and placement
 trees align, every argument is on the meta device, and the shapes follow
 the shape table; the reference's cell builds beside each for its leaf
-count."""
+count. One 2-layer ZeRO-1 train cell also traces on a three-axis (pod,
+data, model) mesh in a fake world of 8 ranks."""
 import jax
 import pytest
 import torch
@@ -12,8 +13,8 @@ from repro.launch.cells import build_cell as ref_build_cell
 from repro.launch.mesh import make_host_mesh as ref_host_mesh
 from repro_torch.configs import ARCH_IDS, SHAPES, cell_supported, get_config
 from repro_torch.convert import reference_leaves
-from repro_torch.launch.cells import build_cell
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.cells import build_cell, trace_cell
+from repro_torch.launch.mesh import fake_world, make_host_mesh
 
 
 def _tensors(tree) -> list:
@@ -82,3 +83,23 @@ def test_train_cell_batch_matches_spec():
     cfg = cell.cfg
     assert tuple(batch["tokens"].shape) == (spec.global_batch, spec.seq_len - cfg.frontend_len)
     assert tuple(batch["prefix"].shape) == (spec.global_batch, cfg.frontend_len, cfg.d_model)
+
+
+@pytest.mark.parametrize("attn_impl", ["torch", "chunked"])
+def test_multi_pod_train_cell_with_zero1_traces(attn_impl):
+    """A 2-layer qwen3 train_4k cell with ZeRO-1 on a (pod, data, model) =
+    (2, 2, 2) mesh, the multi-pod mesh's three axes in a fake world of 8
+    ranks, traces on both dry-run routes: ZeRO-1 gathers the updated
+    parameter shards, and the chunked route does the plain route's matrix
+    products."""
+    fake_world(8)
+    mesh = make_host_mesh(2, 2, 2, device="cpu")
+    assert mesh.mesh_dim_names == ("pod", "data", "model")
+    cell = build_cell("qwen3-0.6b", "train_4k", mesh, zero1=True,
+                      cfg_overrides={"num_layers": 2, "attn_impl": attn_impl})
+    assert cell.cfg.attn_impl == attn_impl
+    (state, metrics), cost, _ = trace_cell(cell, mesh)
+    assert set(state) == set(cell.args[0])
+    assert metrics["loss"].shape == ()
+    assert cost.collective_counts["all-gather"] > 0
+    assert cost.flops == 186_126_702_739_456

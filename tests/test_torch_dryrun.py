@@ -75,32 +75,62 @@ from repro.launch.cells import build_cell, lower_cell
 from repro.launch.mesh import make_host_mesh
 import json, re
 mesh = make_host_mesh(2, 2)
-cell = build_cell("qwen3-0.6b", "prefill_32k", mesh, cfg_overrides={"num_layers": 2})
-text = lower_cell(cell, mesh).compile().as_text()
-cost = hlo.analyze(text)
-# the element type of every collective's result, by kind
-kinds = "all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute"
-dtypes = sorted({(m[1], m[0]) for m in re.findall(
-    r"= \(?(\w+)\[[\d,]*\]\S* (" + kinds + r")(?:-start)?\(", text)})
-print("REF_CELL", json.dumps({"flops": cost.flops, "collectives": cost.collectives,
-                              "collective_counts": cost.collective_counts, "dtypes": dtypes}))
+out = {}
+for impl in ("xla", "chunked"):
+    cell = build_cell("qwen3-0.6b", "prefill_32k", mesh,
+                      cfg_overrides={"num_layers": 2, "attn_impl": impl})
+    text = lower_cell(cell, mesh).compile().as_text()
+    cost = hlo.analyze(text)
+    # the element type of every collective's result, by kind
+    kinds = "all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute"
+    dtypes = sorted({(m[1], m[0]) for m in re.findall(
+        r"= \(?(\w+)\[[\d,]*\]\S* (" + kinds + r")(?:-start)?\(", text)})
+    out[impl] = {"flops": cost.flops, "collectives": cost.collectives,
+                 "collective_counts": cost.collective_counts, "dtypes": dtypes,
+                 "while_trip_counts": cost.while_trip_counts}
+print("REF_CELL", json.dumps(out))
 """
 
 
 @pytest.fixture(scope="module")
-def prefill_cell():
-    """The 2-layer qwen3 prefill_32k cell on a (2, 2) mesh: the reference's
-    multiplicity-aware HLO count of the cell compiled for 4 host devices, and
-    the port's per-rank count of the same cell."""
+def ref_prefill_cells():
+    """The reference's multiplicity-aware HLO counts of the 2-layer qwen3
+    prefill_32k cell compiled for 4 host devices on a (2, 2) mesh, on its
+    plain route (``"xla"``) and its chunked one, from one subprocess."""
     ref = subprocess.run([sys.executable, "-c", _REF_CELL], capture_output=True, text=True,
                          timeout=600, cwd=ROOT, preexec_fn=_lower_priority)
     line = [ln for ln in ref.stdout.splitlines() if ln.startswith("REF_CELL ")]
     assert line, ref.stdout + ref.stderr
+    return json.loads(line[0].split(" ", 1)[1])
+
+
+def _port_prefill_cost(impl: str):
     fake_world(4)
     mesh = make_host_mesh(2, 2, device="cpu")
-    cell = build_cell("qwen3-0.6b", "prefill_32k", mesh, cfg_overrides={"num_layers": 2})
-    _, cost, _ = trace_cell(cell, mesh)
-    return json.loads(line[0].split(" ", 1)[1]), cost
+    cell = build_cell("qwen3-0.6b", "prefill_32k", mesh,
+                      cfg_overrides={"num_layers": 2, "attn_impl": impl})
+    return trace_cell(cell, mesh)[1]
+
+
+@pytest.fixture(scope="module")
+def prefill_cell(ref_prefill_cells):
+    """The 2-layer qwen3 prefill_32k cell on a (2, 2) mesh: the reference's
+    multiplicity-aware HLO count of the cell compiled for 4 host devices, and
+    the port's per-rank count of the same cell."""
+    return ref_prefill_cells["xla"], _port_prefill_cost("torch")
+
+
+def test_chunked_prefill_cell_flops_match_the_reference_chunked_hlo(ref_prefill_cells):
+    """On the chunked route the reference's HLO scans 64 key chunks of 512 a
+    layer in a while loop (the analyzer multiplies its body by the trip
+    count); the port runs them as a Python loop. Same matrix products, same
+    FLOPs as the plain route, and the same five all-reduces."""
+    ref = ref_prefill_cells["chunked"]
+    assert 64 in ref["while_trip_counts"]
+    cost = _port_prefill_cost("chunked")
+    assert cost.flops == pytest.approx(ref["flops"], rel=0.02)
+    assert cost.flops == pytest.approx(ref_prefill_cells["xla"]["flops"], rel=0.02)
+    assert dict(cost.collective_counts) == {"all-reduce": 5}
 
 
 def test_prefill_cell_flops_per_rank_match_the_reference_hlo(prefill_cell):

@@ -87,12 +87,17 @@ def test_forward_logits_match(name):
     np.testing.assert_allclose(model(torch.from_numpy(toks)).numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("jimpl", ["xla", "pallas"])
+@pytest.mark.parametrize("jimpl", ["xla", "pallas", "chunked"])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_prefill_logits_and_every_cache_leaf_match(name, jimpl):
     """A prompt longer than the window and no multiple of it, so the ring
-    wraps: its slots and ``slotpos`` must land where the reference's do."""
+    wraps: its slots and ``slotpos`` must land where the reference's do.
+    ``"chunked"`` runs the chunked route in both packages (online-softmax
+    attention and the chunked SSD scan); the port's plain route stands
+    against ``"xla"`` and ``"pallas"``."""
     jcfg, tcfg, jparams, model = _models(name)
+    if jimpl == "chunked":
+        tcfg = tcfg.replace(attn_impl="chunked")
     b, s, max_len = 2, tcfg.window + 5, tcfg.window + 12
     toks = _tokens(tcfg, b, s, seed=1)
     want, jcache = j_prefill(jparams, jnp.asarray(toks), jcfg.replace(attn_impl=jimpl),
