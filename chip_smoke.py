@@ -274,10 +274,16 @@ MESH_LOSS_TOL = 1e-3
 # (torch 2.11, CUDA 12.8), so the card runs only what all-reduces carry:
 # the logits are compared shard by shard, not gathered, and the step runs
 # without ZeRO-1, whose update gathers the parameters (it runs in four gloo
-# processes on the CPU, tests/test_torch_sharded.py)
+# processes on the CPU, tests/test_torch_sharded.py). Then the two ranks save
+# a tree sharded over them at MESH2_CKPT_STEPS with keep=MESH2_CKPT_KEEP:
+# each rank must list the last two steps, refuse the first and restore the
+# last bit for bit (retention after the manifest is re-read on every rank)
 MESH2 = dict(layers=2, batch=2, seq=512)
 MESH2_LOGIT_TOL, MESH2_LOSS_TOL, MESH2_NORM_RTOL = 1e-4, 1e-5, 1e-4
-# (c) The dry run's cells: (arch, shape, multi-pod)
+MESH2_CKPT_STEPS, MESH2_CKPT_KEEP = (1, 2, 3), 2
+# (c) The dry run's cells: (arch, shape, multi-pod); each also prints the
+# redistributions DTensor ran as one collective a mesh axis
+# (dryrun.sequential_collectives, null where this torch merges none)
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False), ("deepseek-v2-lite-16b", "decode_32k", True))
 # what the earlier phases served and trained, for phase 10(a)
 EARLIER: dict = {}
@@ -2371,7 +2377,7 @@ def mesh_phases(torch, dev, sync) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
-    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.dryrun import run_cell, sequential_collectives
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
@@ -2482,11 +2488,19 @@ def mesh_phases(torch, dev, sync) -> None:
         if t["loss_abs_err"] > MESH2_LOSS_TOL or t["grad_norm_rel_err"] > MESH2_NORM_RTOL:
             fail(f"phase 10(b) rank {r}: the (2, 1) ZeRO-1 step's loss off by "
                  f"{t['loss_abs_err']}, grad_norm by {t['grad_norm_rel_err']} relative")
+        c = res["checkpoint"]
+        kept = list(MESH2_CKPT_STEPS[-MESH2_CKPT_KEEP:])
+        if c["steps"] != kept or not c["refused_first"] or not c["last_equal"]:
+            fail(f"phase 10(b) rank {r}: {len(MESH2_CKPT_STEPS)} saves at "
+                 f"keep={MESH2_CKPT_KEEP} left steps {c['steps']} (want {kept}), step "
+                 f"{MESH2_CKPT_STEPS[0]} refused: {c['refused_first']}, the last restored "
+                 f"equal: {c['last_equal']}")
 
     # -- (c) the dry run, on the host --------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
         for arch, shape, multi in DRYRUN_CELLS:
-            rec = run_cell(arch, shape, multi, out)
+            with sequential_collectives() as sequential:
+                rec = run_cell(arch, shape, multi, out)
             if rec["status"] != "ok":
                 fail(f"phase 10(c): the dry run of {arch} x {shape}: {rec.get('error')}")
             r = rec["roofline"]
@@ -2500,6 +2514,9 @@ def mesh_phases(torch, dev, sync) -> None:
                               "bytes_per_rank": rec["hlo"]["bytes"],
                               "collective_bytes_per_rank": rec["hlo"]["collective_bytes"],
                               "collectives": rec["hlo"]["collective_counts"],
+                              "sequential_collectives": (None if sequential is None
+                                                         else dict(sequential)),
+                              "torch": torch.__version__,
                               "memory_analysis": rec["memory_analysis"]}), flush=True)
 
 
@@ -2511,6 +2528,7 @@ def _two_ranks(rank: int, store: str, outdir: str) -> None:
 
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.analysis.cost import CostCounter
     from repro_torch.configs import get_config
@@ -2518,9 +2536,10 @@ def _two_ranks(rank: int, store: str, outdir: str) -> None:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build, shard_params
-    from repro_torch.models.spec import activation_sharding, local_box
+    from repro_torch.models.spec import activation_sharding, distribute, local_box
     from repro_torch.serve import make_cache, make_prefill_step
     from repro_torch.serve.step import cache_shardings, shard_tree
+    from repro_torch.storage import CheckpointManager, DiskStorage
     from repro_torch.train import AdamW, init_state, make_train_step, shard_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2585,6 +2604,29 @@ def _two_ranks(rank: int, store: str, outdir: str) -> None:
             "launches": fa_mod.launches,
             "collectives": dict(counter.cost.collective_counts),
             "collective_bytes": counter.cost.collective_bytes}
+        del state, batch
+
+        def tree(n: int) -> dict:
+            return {"w": distribute(torch.arange(64.0, device=dev).reshape(16, 4) * n, mesh,
+                                    (Shard(0), Replicate())),
+                    "step": torch.tensor(n, device=dev)}
+
+        ck = CheckpointManager(DiskStorage(os.path.join(outdir, "ckpt")), keep=MESH2_CKPT_KEEP)
+        for step_no in MESH2_CKPT_STEPS:
+            ck.save(step_no, tree(step_no))
+        target = {"w": torch.empty((16, 4), device="meta"),
+                  "step": torch.empty((), dtype=torch.int64, device="meta")}
+        try:
+            ck.restore(target, MESH2_CKPT_STEPS[0])
+            refused = False
+        except FileNotFoundError:
+            refused = True
+        last = MESH2_CKPT_STEPS[-1]
+        back = ck.restore(target, last)
+        out["checkpoint"] = {
+            "steps": ck.steps(), "refused_first": refused,
+            "last_equal": bool(torch.equal(back["w"], torch.arange(64.0).reshape(16, 4) * last)
+                               and int(back["step"]) == last)}
         with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:

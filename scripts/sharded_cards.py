@@ -6,7 +6,13 @@ and 8 greedy tokens (each rank's attention on the kernel, on its half of
 the heads; the logits gathered whole), one ZeRO-1 AdamW step (the
 gradients all-reduced, the updated parameters all-gathered), and the state
 saved one chunk a shard and restored on a (1, 4) mesh, each held against
-the same work on one card (rank 0's, with no mesh). Prints one JSON line.
+the same work on one card (rank 0's, with no mesh). Then qwen3 with 2 KV
+heads on (1, 4), where each rank projects V for its query heads' one KV
+head (prefill logits and greedy tokens against one card); the ZeRO-1 step
+on a (pod, data, model) = (2, 2, 1) mesh, whose gradients and gathers run
+over the flattened (pod, data) group; and three saves of a tree sharded
+over the four ranks at keep=2, after which every rank must list the last
+two steps and refuse the first. Prints one JSON line.
 
     python scripts/sharded_cards.py                 # four cards (NCCL)
     python scripts/sharded_cards.py --device cpu    # a rehearsal: four gloo
@@ -25,9 +31,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.tensor import Replicate, Shard
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, MESH, OTHER = 4, (2, 2), (1, 4)
+POD_MESH = dict(pod=2, data=2, model=1)  # ZeRO-1 over the flattened (pod, data) group
 BATCH, SEQ, NEW, LAYERS = 2, 512, 8, 2
 
 
@@ -38,7 +46,7 @@ def rank_main(rank: int, device: str, store: str, ckdir: str, out: str) -> None:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build, shard_params
-    from repro_torch.models.spec import activation_sharding, full
+    from repro_torch.models.spec import activation_sharding, distribute, full
     from repro_torch.serve import generate, make_cache, make_prefill_step
     from repro_torch.serve.step import cache_shardings, shard_tree
     from repro_torch.storage import CheckpointManager, DiskStorage
@@ -100,6 +108,23 @@ def rank_main(rank: int, device: str, store: str, ckdir: str, out: str) -> None:
             res["tokens_equal"] = bool(torch.equal(tok, want_tok))
             del sharded, cache, got, want
 
+            # 2 KV heads on a model axis of 4: V projected by rank
+            kcfg = cfg.replace(num_kv_heads=2)
+            model = build(kcfg, device=dev, seed=0)
+            want, _ = make_prefill_step(kcfg)(model, batch,
+                                              make_cache(kcfg, BATCH, seq, device=dev))
+            want_tok = generate(model, kcfg, prompt, max_new=NEW, device=dev)
+            other = make_host_mesh(*OTHER, device=dev.type)
+            sharded = shard_params(model, other)
+            with activation_sharding(other):
+                cache = make_cache(kcfg, BATCH, seq, device=dev)
+                cache = shard_tree(cache, other, cache_shardings(kcfg, cache, other))
+                got = full(make_prefill_step(kcfg)(sharded, batch, cache)[0])
+                tok = generate(sharded, kcfg, prompt, max_new=NEW, device=dev)
+            res["v_by_rank"] = {"logits_max_abs_err": (got - want).abs().max().item(),
+                                "tokens_equal": bool(torch.equal(tok, want_tok))}
+            del model, sharded, cache, got, want
+
         tcfg, optim = cfg.replace(attn_impl="torch"), AdamW()
         data = {k: torch.from_numpy(v).to(dev)
                 for k, v in SyntheticTokens(cfg.vocab, seq, BATCH * 2, seed=0).batch_at(0).items()}
@@ -127,6 +152,36 @@ def rank_main(rank: int, device: str, store: str, ckdir: str, out: str) -> None:
         back = flat(CheckpointManager(DiskStorage(ckdir)).restore(target))
         res["restore_differs"] = sorted(n for n in got_leaves
                                         if not np.array_equal(got_leaves[n], back[n]))
+        del state, back
+
+        pod_mesh = make_host_mesh(**POD_MESH, device=dev.type)
+        state = shard_state(init_state(tcfg, optim, seed=0, device=dev), tcfg, pod_mesh, optim,
+                            zero1=True)
+        with activation_sharding(pod_mesh):
+            state, m3 = step(state, data)
+        got_leaves = flat(state)
+        res["pod_data_zero1"] = {
+            "flattened": sorted(pod_mesh._flatten_mapping),
+            "loss_abs_err": abs(float(m3["loss"]) - float(m1["loss"])),
+            "grad_norm_rel_err": abs(float(m3["grad_norm"]) / float(m1["grad_norm"]) - 1),
+            "leaves_max_abs_err": max(
+                float(np.abs(got_leaves[n].astype(np.float64) - want_leaves[n]).max())
+                for n in want_leaves)}
+        del state
+
+        ck = CheckpointManager(DiskStorage(ckdir + "_keep2"), keep=2)
+        for s in (1, 2, 3):
+            ck.save(s, {"w": distribute(torch.arange(64.0, device=dev).reshape(16, 4) * s,
+                                        pod_mesh, (Shard(0), Shard(0), Replicate())),
+                        "step": torch.tensor(s)})
+        try:
+            ck.restore({"step": torch.empty((), dtype=torch.int64, device="meta")}, 1)
+            refused = False
+        except FileNotFoundError:
+            refused = True
+        seen = [None] * WORLD
+        dist.all_gather_object(seen, {"steps": ck.steps(), "refused": refused})
+        res["keep2"] = seen
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(res, f)

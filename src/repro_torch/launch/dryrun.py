@@ -32,10 +32,12 @@ reference's keys. What differs:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
 import traceback
+from collections import Counter
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -60,6 +62,38 @@ def _local_bytes(tree) -> int:
             t = leaf.to_local() if isinstance(leaf, DTensor) else leaf
             total += t.numel() * t.element_size()
     return total
+
+
+@contextlib.contextmanager
+def sequential_collectives():
+    """Count, while the block runs, the DTensor redistributions that run as
+    several sequential collectives, one a mesh axis: the events behind
+    DTensor's "N sequential all_reduce operations" warning, which it prints
+    once per (mesh, axes). Yields a ``Counter`` keyed by collective, number
+    of collectives, the axes' names and DTensor's reason, e.g. ``all_reduce
+    x2 (pod, data) no_flattened_mesh``; None on a torch whose redistribute
+    has no such merge (it then issues one collective a mesh axis, and says
+    nothing)."""
+    from torch.distributed.tensor import _redistribute
+
+    warn = getattr(_redistribute, "_warn_flatten_optimization_not_possible", None)
+    if warn is None:
+        yield None
+        return
+    counts: Counter = Counter()
+
+    def counting(device_mesh, mesh_dims, src_placements, dst_placements, num_ops,
+                 comm_type, reason):
+        names = ", ".join(device_mesh.mesh_dim_names[d] for d in mesh_dims)
+        counts[f"{comm_type} x{num_ops} ({names}) {reason}"] += 1
+        return warn(device_mesh, mesh_dims, src_placements, dst_placements, num_ops,
+                    comm_type, reason)
+
+    _redistribute._warn_flatten_optimization_not_possible = counting
+    try:
+        yield counts
+    finally:
+        _redistribute._warn_flatten_optimization_not_possible = warn
 
 
 def run_cell(

@@ -15,6 +15,14 @@ process group, which must hold one rank for each mesh position.
 the dry run; ``make_host_mesh`` runs over a world that the caller started
 (``gloo`` on the CPU, ``nccl`` on the card), or starts a world of one rank
 itself.
+
+Every mesh ``_mesh`` builds also registers flattened submeshes
+(``DeviceMesh._flatten``) for its contiguous axis runs ``(pod, data)``,
+``(data, model)`` and ``(pod, data, model)`` that hold more than one rank
+along at least two axes. DTensor's redistribute then issues a Partial over
+such a run, or ZeRO-1's gather over ``(pod, data)``, as one collective on
+the flattened group where it would issue one a mesh axis; this is the one
+reduction over all the axes at once that the reference's GSPMD issues.
 """
 from __future__ import annotations
 
@@ -55,12 +63,32 @@ def _world_of_one(device: torch.device) -> None:
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
 
 
+def _flatten_axis_runs(mesh: DeviceMesh) -> None:
+    """Register a flattened submesh, named by its axes joined with ``_``, for
+    each contiguous run of two or more axes with more than one rank along at
+    least two of them. A run whose axes of more than one rank equal an
+    earlier run's has that run's layout (DTensor looks a flattened mesh up by
+    layout), so it is left out: ``(pod, data, model)`` on a (2, 2, 1) mesh is
+    ``(pod, data)``. A collective, like making the mesh: every rank calls it."""
+    names, shape = mesh.mesh_dim_names, mesh.shape
+    seen = set()
+    for width in range(2, len(names) + 1):
+        for start in range(len(names) - width + 1):
+            run = names[start:start + width]
+            wide = tuple(a for a, n in zip(run, shape[start:start + width]) if n > 1)
+            if len(wide) >= 2 and wide not in seen:
+                seen.add(wide)
+                mesh[run]._flatten()
+
+
 def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], device_type: str) -> DeviceMesh:
     n = math.prod(shape)
     if not dist.is_initialized() or dist.get_world_size() != n:
         have = dist.get_world_size() if dist.is_initialized() else "no"
         raise RuntimeError(f"a {shape} mesh needs a process group of {n} ranks; {have} ranks")
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    mesh = DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    _flatten_axis_runs(mesh)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:

@@ -13,7 +13,10 @@ ops. The kernel calls (attention, the SSD scan), RoPE's position gathers,
 the depthwise convolutions, MoE routing, dispatch and combine, the SSD
 decode step and the cache writes run on each rank's local shards
 (``spec.local_region``, ``local_map``), with the placements the reference's
-constraints name. Off a mesh every one of them is the plain function.
+constraints name; so does V's projection where the KV heads are too few
+to split over the model axis (each rank projects the one KV head its query
+heads read, as the reference's GSPMD does). Off a mesh every one of them
+is the plain function.
 """
 from __future__ import annotations
 
@@ -152,12 +155,13 @@ def attention_spec(cfg: ModelConfig) -> dict:
     return p
 
 
-def qkv_project(p: Any, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def qkv_project(p: Any, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
+                project_v: bool = True):
     """(q (B,S,H,hd), k, v (B,S,kv,hd)), q and k normalised per head (qk-norm)
-    and rotated."""
+    and rotated; v is None with ``project_v=False``."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype)) if project_v else None
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -178,7 +182,8 @@ _RESIDUAL = ("batch", "res_seq", "embed")
 def _local_kv(k: torch.Tensor, h: int) -> torch.Tensor:
     """The KV heads of this rank's query heads, when the query heads are
     sharded and the KV heads (too few to shard) are not: query head j
-    reads KV head j // (h / kv)."""
+    reads KV head j // (h / kv). A copy, contiguous as the attention kernel
+    takes its operands."""
     kv = k.shape[1]
     h0, hl = shard_offset("heads", h)
     _, kl = shard_offset("kv_heads", kv)
@@ -188,14 +193,55 @@ def _local_kv(k: torch.Tensor, h: int) -> torch.Tensor:
     first, last = h0 // group, (h0 + hl - 1) // group
     if not ((h0 % group == 0 and hl % group == 0) or first == last):
         raise ValueError(f"query heads {h0}..{h0 + hl} do not cover whole KV groups of {group}")
-    return k[:, first:last + 1]
+    return k[:, first:last + 1].contiguous()
 
 
-def _attention_local(q, k, v, causal, window, impl, h, dv=None):
+def _v_by_rank(h: int, kv: int) -> bool:
+    """Whether each rank projects V for the one KV head its query heads read
+    (``_project_v_by_rank``) rather than for all of them: on a mesh that
+    splits the query heads but not the KV heads (more than one, too few for
+    the model axis), with each rank's query heads inside one KV group. The
+    reference's GSPMD does so, propagating the attention's split of the
+    heads back into V's projection; K, normalised and rotated before the
+    attention, it projects whole on every rank, and so does the port."""
+    _, hl = shard_offset("heads", h)
+    _, kl = shard_offset("kv_heads", kv)
+    return kv > 1 and hl < h and kl == kv and (h // kv) % hl == 0
+
+
+def _project_v_of_rank(x, wv, h: int) -> torch.Tensor:
+    """(B, 1, S, hd): V for the KV head that this rank's query heads read;
+    query head j reads KV head j // (h / kv)."""
+    h0, _ = shard_offset("heads", h)
+    w = wv[:, h0 // (h // wv.shape[1])].to(x.dtype)
+    return torch.einsum("bsd,dk->bsk", x, w).unsqueeze(1)
+
+
+def _project_v_by_rank(p: Any, x: torch.Tensor, h: int) -> torch.Tensor:
+    """V projected on each rank for its query heads' one KV head, heads
+    first: (B, M, S, hd) split as the query heads are, M the size of their
+    mesh axes, a rank's one head the one it reads."""
+    fn = partial(_project_v_of_rank, h=h)
+    return local_region(fn, (("batch", "seq", None), ("embed", "kv_heads", None)),
+                        (Out(_HEADS_FIRST_Q, sizes=(("heads", h),)),))(x, p["wv"])
+
+
+def _gather_v(v_by_rank: torch.Tensor, kv: int) -> torch.Tensor:
+    """The whole (B, kv, S, hd) V from ``_project_v_by_rank``'s heads, for a
+    cache that holds every KV head: one all-gather over the heads' mesh
+    axes, then every (M / kv)-th head (the ranks of one KV group agree)."""
+    mesh = v_by_rank.device_mesh
+    whole = v_by_rank.redistribute(mesh, [Replicate() if isinstance(pl, Shard) and pl.dim == 1
+                                          else pl for pl in v_by_rank.placements])
+    return whole[:, ::whole.shape[1] // kv]
+
+
+def _attention_local(q, k, v, causal, window, impl, h, dv=None, v_by_rank=False):
     """``ops.attention`` on one rank's heads (the kernel for CUDA tensors).
     With ``dv`` (MLA), v is padded with zeros to q's head dim and the output
-    sliced back: the kernel takes one head_dim."""
-    k, v = _local_kv(k, h), _local_kv(v, h)
+    sliced back: the kernel takes one head_dim. With ``v_by_rank`` v holds
+    just the KV head that the rank's query heads read."""
+    k, v = _local_kv(k, h), v if v_by_rank else _local_kv(v, h)
     if dv is not None:
         v = F.pad(v, (0, q.shape[-1] - dv))
     out = ops.attention(q, k, v, causal=causal, window=window, impl=impl)
@@ -203,12 +249,14 @@ def _attention_local(q, k, v, causal, window, impl, h, dv=None):
 
 
 def attention(qh, kh, vh, cfg: ModelConfig, *, causal: bool = True, window=None,
-              dv: int | None = None) -> torch.Tensor:
+              dv: int | None = None, v_by_rank: bool = False) -> torch.Tensor:
     """(B, H, S, D) attention over (B, kv, S, D) keys and values, on each
-    rank's local heads (batch over data, heads over model)."""
+    rank's local heads (batch over data, heads over model); with
+    ``v_by_rank`` the values are ``_project_v_by_rank``'s."""
     fn = partial(_attention_local, causal=causal, window=window, impl=cfg.attn_impl,
-                 h=qh.shape[1], dv=dv)
-    return local_region(fn, (_HEADS_FIRST_Q, _HEADS_FIRST_KV, _HEADS_FIRST_KV),
+                 h=qh.shape[1], dv=dv, v_by_rank=v_by_rank)
+    v_axes = _HEADS_FIRST_Q if v_by_rank else _HEADS_FIRST_KV
+    return local_region(fn, (_HEADS_FIRST_Q, _HEADS_FIRST_KV, v_axes),
                         (Out(_HEADS_FIRST_Q),))(qh, kh, vh)
 
 
@@ -238,15 +286,18 @@ def attention_forward(
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = qkv_project(p, x, cfg, positions)
-    qh, kh, vh = _heads_first(q), _heads_first(k), _heads_first(v)
+    h, kv = p["wq"].shape[1], p["wv"].shape[1]
+    by_rank = _v_by_rank(h, kv)
+    q, k, v = qkv_project(p, x, cfg, positions, project_v=not by_rank)
+    qh, kh = _heads_first(q), _heads_first(k)
+    vh = _project_v_by_rank(p, x, h) if by_rank else _heads_first(v)
     new_cache = None
     if kv_cache is not None:
         ck, cv = kv_cache
         start = 0 if cache_pos is None else int(cache_pos)
         at = max(0, min(start, ck.shape[2] - s))  # clamped, as dynamic_update_slice is
         write_cache(ck, kh, at, 2)
-        write_cache(cv, vh, at, 2)
+        write_cache(cv, _gather_v(vh, kv) if by_rank else vh, at, 2)
         new_cache = (ck, cv)
     if kv_cache is not None and s <= 1:
         t = ck.shape[2]
@@ -257,7 +308,7 @@ def attention_forward(
             mask = mask & (qpos - kpos < window)
         out = _masked_attention(qh, ck, cv, mask, cfg, hd)
     else:
-        out = attention(qh, kh, vh, cfg, causal=causal, window=window)
+        out = attention(qh, kh, vh, cfg, causal=causal, window=window, v_by_rank=by_rank)
     out = out.transpose(1, 2)  # (B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return shard_activation(y, _RESIDUAL), new_cache

@@ -398,9 +398,32 @@ def current_mesh() -> tuple[Any, dict | None] | None:
     return _ACTIVATION_CTX[-1][:2]
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor laid out at ``placements``, and its gradient laid out there
+    too on the way back, as the transpose of JAX's sharding constraint
+    constrains the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.view_as(x) if tuple(x.placements) == placements else x.redistribute(
+            mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None, None
+
+
 def shard_activation(x: torch.Tensor, axes: tuple[str | None, ...]) -> torch.Tensor:
     """Redistribute a DTensor to the rule table's placements for ``axes``
-    (no-op off-mesh, on a plain tensor, or on a trivial mesh).
+    (no-op off-mesh, on a plain tensor, or on a trivial mesh). While
+    autograd records, the gradient is laid out the same way on the way
+    back, as the reference's ``with_sharding_constraint`` constrains the
+    cotangent: DTensor otherwise leaves a gradient a partial sum, or shards
+    it along another dim, wherever its cheapest collective falls, and the
+    ops before it in the backward then do work the reference does not.
 
     If no axis maps to a mesh axis the constraint is skipped entirely, as
     the reference skips it: pinning a tensor replicated would force
@@ -414,6 +437,8 @@ def shard_activation(x: torch.Tensor, axes: tuple[str | None, ...]) -> torch.Ten
     if not any(p is not None for p in spec):
         return x
     placements = to_placements(spec, mesh)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, mesh, placements)
     return x if tuple(x.placements) == placements else x.redistribute(mesh, placements)
 
 
@@ -451,11 +476,14 @@ def shard_offset(axis: str, size: int) -> tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class Out:
-    """A local region's output: its logical ``axes`` and the logical axes
-    whose mesh axes it is a partial sum over (``partial``)."""
+    """A local region's output: its logical ``axes``, the logical axes
+    whose mesh axes it is a partial sum over (``partial``), and the global
+    sizes of logical axes that no input carries (``sizes``, pairs of axis
+    and size), which decide whether the output splits along them."""
 
     axes: tuple[str | None, ...]
     partial: tuple[str, ...] = ()
+    sizes: tuple[tuple[str, int], ...] = ()
 
 
 def local_region(fn: Callable[..., Any], in_axes: tuple, out: tuple[Out | None, ...]
@@ -493,7 +521,8 @@ def local_region(fn: Callable[..., Any], in_axes: tuple, out: tuple[Out | None, 
             if o is None:
                 out_pl.append(None)
                 continue
-            shape = tuple(sizes.get(ax, 1) if ax is not None else 1 for ax in o.axes)
+            known = {**sizes, **dict(o.sizes)}
+            shape = tuple(known.get(ax, 1) if ax is not None else 1 for ax in o.axes)
             pl = list(to_placements(logical_to_pspec(o.axes, mesh, rules, shape=shape), mesh))
             order = list(mesh.mesh_dim_names)
             for ax in o.partial:

@@ -177,7 +177,10 @@ class CheckpointManager:
 
         In a world of several processes every rank calls it (a collective):
         each writes its shards in turn, rank 0 also the plain leaves and,
-        last, the commit; the save is then blocking."""
+        last, the commit; the save is then blocking. Retention runs on every
+        rank after it re-reads the manifest, which still lists the dropped
+        steps (a delete drops a key from this store's index only), so each rank keeps the
+        same ``keep`` steps as one process would."""
         self.wait()  # one in-flight save at a time
         world = dist.get_world_size() if dist.is_initialized() else 1
         rank = dist.get_rank() if world > 1 else 0
@@ -198,13 +201,13 @@ class CheckpointManager:
             commit_key = RegionKey(self.namespace, _COMMIT, ElementType.INT64, timestamp=step)
             self.store.put(commit_key, BoundingBox((0,), (1,)), np.asarray([step]))
             self.store.flush()
-            self._gc()
 
         def _write() -> None:
             try:
                 t1 = time.perf_counter()
                 _put_leaves()
                 _commit()
+                self._gc()
                 info["write_s"] = time.perf_counter() - t1
                 with self._lock:
                     self.last_save = info
@@ -223,6 +226,7 @@ class CheckpointManager:
                 _commit()
             dist.barrier()
             self.store.reload()
+            self._gc()
             info["write_s"] = time.perf_counter() - t1
             with self._lock:
                 self.last_save = info

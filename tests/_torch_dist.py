@@ -2,7 +2,10 @@
 sharded tests: ``spawn(fn, world, *args)`` starts ``world`` processes,
 each with its default process group (a file store under a temporary
 directory; no network), calls ``fn(rank, *args)`` in each and returns what
-rank 0's call returned. A failure in any rank fails the call."""
+rank 0's call returned. A failure in any rank fails the call.
+``destroy_default_group()`` ends the default process group of the test
+process itself, such as the fake world a dry-run test makes, so that no
+later test file on the same worker inherits it."""
 import os
 import pickle
 import sys
@@ -34,6 +37,12 @@ def _worker(rank: int, world: int, store: str, out: str, fn, args) -> None:
         traceback.print_exc()
         raise
     finally:
+        dist.destroy_process_group()
+
+
+def destroy_default_group() -> None:
+    """Destroy this process's default process group, if it has one."""
+    if dist.is_initialized():
         dist.destroy_process_group()
 
 

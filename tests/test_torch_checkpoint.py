@@ -33,9 +33,19 @@ from repro_torch.data import SyntheticTokens
 from repro_torch.models import build
 from repro_torch.storage import CheckpointManager, DiskStorage
 from repro_torch.train import AdamW, AdamWConfig, init_state, make_train_step
+from tests._torch_dist import destroy_default_group, spawn
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(autouse=True)
+def _one_process():
+    """Each test here starts with no default process group: a save in a world
+    of several ranks takes the collective path, and a group left behind by
+    an earlier test file on this worker (a dry run's fake world) would turn
+    these one-process cases into it."""
+    destroy_default_group()
 
 
 def _tree():
@@ -98,6 +108,69 @@ def test_retention_gc(tmp_path):
     assert ck.steps() == [3, 4]
     with pytest.raises(FileNotFoundError):
         ck.restore(_target(_tree()), 1)
+
+
+def _four_saves_at_keep_two(rank: int, ckdir: str) -> dict:
+    """Each of the ranks saves steps 1-4 at ``keep=2`` over one directory, a
+    leaf sharded over the ranks among the plain ones, then reports what it
+    sees: its steps, its latest step, whether step 1 is refused, and the
+    step-4 tree it restores whole."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.spec import distribute
+
+    mesh = make_host_mesh(2, 1, device="cpu")
+    ck = CheckpointManager(DiskStorage(ckdir), keep=2)
+    for s in (1, 2, 3, 4):
+        tree = _tree()
+        tree["params"]["w"] += s
+        tree["sharded"] = distribute(torch.arange(16.0).reshape(8, 2) * s, mesh,
+                                     (Shard(0), Shard(1)))
+        ck.save(s, tree)
+    target = _target(_tree())
+    target["sharded"] = torch.empty((8, 2), device="meta")
+    try:
+        ck.restore(target, 1)
+        refused = False
+    except FileNotFoundError:
+        refused = True
+    mine = {"steps": ck.steps(), "latest": ck.latest_step(), "refused": refused,
+            "restored": {n: t.numpy() for n, t in _named(ck.restore(target, 4))}}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _named(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in _named(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def test_retention_holds_on_every_rank_of_a_multi_rank_save(tmp_path):
+    """Two gloo ranks save four steps at keep=2 as one process does: rank 0
+    commits and every rank drops the old steps after it re-reads the
+    manifest, so both see [3, 4], refuse step 1 and restore step 4 bit for
+    bit."""
+    ranks = spawn(_four_saves_at_keep_two, 2, str(tmp_path))
+    want = _tree()
+    want["params"]["w"] += 4
+    want["sharded"] = torch.arange(16.0).reshape(8, 2) * 4
+    for rank, seen in enumerate(ranks):
+        assert seen["steps"] == [3, 4], rank
+        assert seen["latest"] == 4 and seen["refused"], rank
+        got = seen["restored"]
+        assert set(got) == {n for n, _ in _named(want)}
+        for name, t in _named(want):
+            assert got[name].dtype == t.numpy().dtype, (rank, name)
+            np.testing.assert_array_equal(got[name], t.numpy(), err_msg=f"{rank} {name}")
+    # a fresh handle reads the manifest, which keeps every committed step: a
+    # delete is index-only, as in the reference's store
+    assert CheckpointManager(DiskStorage(str(tmp_path)), keep=2).steps() == [1, 2, 3, 4]
 
 
 def test_uncommitted_invisible(tmp_path):

@@ -3,6 +3,7 @@
 sharded cell against the reference's HLO analyzer, the roofline terms
 against the reference's, and the CLI's artifact."""
 import json
+import math
 import os
 import subprocess
 import sys
@@ -19,6 +20,16 @@ from repro_torch.analysis.cost import CostCounter
 from repro_torch.launch.cells import build_cell, trace_cell
 from repro_torch.launch.mesh import fake_world, make_host_mesh
 from repro_torch.models.spec import distribute
+from tests._torch_dist import destroy_default_group
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_group_outlives_this_file():
+    """The fake worlds this file's tests make are destroyed when the file
+    ends, so the next file on this pytest worker starts with no group."""
+    yield
+    destroy_default_group()
+
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -156,6 +167,88 @@ def test_prefill_cell_collective_bytes_by_kind_are_the_reference_in_bf16(prefill
     assert dict(cost.collectives) == {
         k: v * bf16 / f32 for k, v in ref["collectives"].items()}
     assert cost.collectives["all-reduce"] == 5 * 16 * 32768 * 1024 * bf16
+
+
+_REF_KV2 = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_cpu_multi_thread_eigen=false")
+sys.path.insert(0, "src")
+from repro.analysis import hlo
+from repro.launch.cells import build_cell, lower_cell
+from repro.launch.mesh import make_host_mesh
+import json
+mesh = make_host_mesh(1, 4)
+out = {}
+for shape in ("prefill_32k", "train_4k"):
+    cell = build_cell("qwen3-0.6b", shape, mesh,
+                      cfg_overrides={"num_layers": 2, "num_kv_heads": 2})
+    cost = hlo.analyze(lower_cell(cell, mesh).compile().as_text())
+    out[shape] = {"flops": cost.flops, "dots": cost.dot_flops_by_shape}
+print("REF_CELL", json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_kv2_cells():
+    """The reference's HLO counts of the 2-layer qwen3 prefill_32k and
+    train_4k cells with 2 KV heads, compiled for 4 host devices on a (1, 4)
+    mesh: the KV heads too few for the model axis."""
+    ref = subprocess.run([sys.executable, "-c", _REF_KV2], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT, preexec_fn=_lower_priority)
+    line = [ln for ln in ref.stdout.splitlines() if ln.startswith("REF_CELL ")]
+    assert line, ref.stdout + ref.stderr
+    return json.loads(line[0].split(" ", 1)[1])
+
+
+def _port_kv2_cost(shape: str):
+    fake_world(4)
+    mesh = make_host_mesh(1, 4, device="cpu")
+    cell = build_cell("qwen3-0.6b", shape, mesh,
+                      cfg_overrides={"num_layers": 2, "num_kv_heads": 2})
+    return trace_cell(cell, mesh)[1]
+
+
+def _families(dots: dict, port: bool) -> dict:
+    """Matrix-product FLOPs by the product's result, (rows, columns), the
+    leading dims taken together: the port keys a product ``BxMxNxK``, the
+    reference's analyzer by its result type, e.g. ``f32[1048576,128]{1,0}``."""
+    out: dict = {}
+    for key, flops in dots.items():
+        if port:
+            b, m, n, _ = map(int, key.split("x"))
+            fam = (b * m, n)
+        else:
+            dims = [int(d) for d in key[key.index("[") + 1:key.index("]")].split(",")]
+            fam = (math.prod(dims[:-1]), dims[-1])
+        out[fam] = out.get(fam, 0.0) + flops
+    return out
+
+
+def test_v_projected_by_rank_flops_match_the_reference_hlo_dot_by_dot(ref_kv2_cells):
+    """With 2 KV heads on a model axis of 4 the reference projects K whole
+    and V for each rank's one KV head (GSPMD propagates the attention's
+    split of the heads back into V's projection); the port does the same
+    work a rank, product family by product family."""
+    ref = _families(ref_kv2_cells["prefill_32k"]["dots"], port=False)
+    cost = _port_kv2_cost("prefill_32k")
+    port = _families(cost.dot_flops_by_shape, port=True)
+    assert set(port) == set(ref)
+    for fam, flops in ref.items():
+        assert port[fam] == pytest.approx(flops, rel=1e-3), fam
+    tokens = 32 * 32768
+    assert port[(tokens, 128)] == 2 * 2 * tokens * 128 * 1024  # V: one head, two layers
+    assert port[(tokens, 256)] == 2 * 2 * tokens * 256 * 1024  # K: both heads
+    assert cost.flops == pytest.approx(ref_kv2_cells["prefill_32k"]["flops"], rel=1e-3)
+
+
+def test_train_cell_flops_with_two_kv_heads_on_four_ranks_match_the_reference_hlo(
+        ref_kv2_cells):
+    """The same cell trained: the forward projects V by rank, and the
+    gradients, laid out where the activations are constrained, take the
+    reference's strategies, so a rank's FLOPs are the reference's."""
+    cost = _port_kv2_cost("train_4k")
+    assert cost.flops == pytest.approx(ref_kv2_cells["train_4k"]["flops"], rel=1e-3)
 
 
 def test_a_shard_to_shard_redistribution_counts_as_one_all_to_all():

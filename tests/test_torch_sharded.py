@@ -4,8 +4,9 @@ models run unsharded in this process: prefill logits and greedy decode of a
 dense (qwen3), an MoE/MLA (deepseek) and an SSM (mamba2) config, and of
 the hybrid (hymba), encoder-decoder (seamless), patch-prefix (internvl2)
 and MQA (gemma) ones; one ZeRO-1 train step of the first three; a checkpoint saved on (2, 2) and restored bit for
-bit on (1, 4), on one process and in the reference, and the kernels'
-refusal of a DTensor. The four processes start once (a module fixture) and
+bit on (1, 4), on one process and in the reference; qwen3 with 2 KV heads
+on (1, 4), where each rank projects V for its own KV head (prefill,
+decode and a train step); and the kernels' refusal of a DTensor. The four processes start once (a module fixture) and
 run every check's sharded half."""
 import copy
 import tempfile
@@ -144,7 +145,25 @@ def _world(rank: int, ckdir: str) -> dict:
     out["placed"] = (type(m).__name__, tuple(m.placements), tuple(m.to_local().shape),
                      sorted(n for n, arr in _flat(laid).items()
                             if n.startswith("opt/") and not np.array_equal(arr, saved[n])))
+
+    # 2 KV heads on a model axis of 4: each rank projects V for its query
+    # heads' one KV head, and the cache gathers the whole V
+    cfg = _v_by_rank_cfg()
+    with activation_sharding(other):
+        model = shard_params(build(cfg, device="cpu", seed=0), other)
+        v_local = tuple(model.layers[0].attn.wv.to_local().shape)
+        logits = _prefill(model, cfg, lambda c: shard_tree(c, other, cache_shardings(
+            cfg, c, other)))
+        tokens = generate(model, cfg, PROMPT, max_new=MAX_NEW, device="cpu")
+        state = shard_state(init_state(cfg, AdamW(), seed=0, device="cpu"), cfg, other, AdamW())
+        state, metrics = make_train_step(cfg, AdamW())(state, _batch(cfg))
+    out["v_by_rank"] = (full(logits).numpy(), tokens.numpy(), v_local,
+                        float(metrics["loss"]), float(metrics["grad_norm"]), _flat(state))
     return out
+
+
+def _v_by_rank_cfg():
+    return _cfg("qwen3-0.6b").replace(num_kv_heads=2, attn_impl="torch")
 
 
 @pytest.fixture(scope="module")
@@ -217,3 +236,27 @@ def test_a_sharded_checkpoint_restores_on_other_meshes_and_in_the_reference(worl
 def test_a_kernel_refuses_a_dtensor(world):
     results, _ = world
     assert results["require"] is not None and "DTensor" in results["require"]
+
+
+def test_v_projected_by_rank_matches_the_unsharded_run(world):
+    """On (1, 4) with 2 KV heads (too few for the model axis) each rank
+    projects V for its query heads' KV head alone: the prefill logits,
+    the greedy tokens and a train step (loss, gradient norm, every updated
+    leaf) match one process within 1e-5."""
+    results, _ = world
+    logits, tokens, v_local, loss, grad_norm, leaves = results["v_by_rank"]
+    cfg, optim = _v_by_rank_cfg(), AdamW()
+    assert v_local == (cfg.d_model, 2, cfg.resolved_head_dim)  # wv itself stays whole
+    model = build(cfg, device="cpu", seed=0)
+    np.testing.assert_allclose(logits, _prefill(copy.deepcopy(model), cfg).numpy(),
+                               rtol=0, atol=TOL)
+    np.testing.assert_array_equal(tokens, generate(model, cfg, PROMPT, max_new=MAX_NEW,
+                                                   device="cpu").numpy())
+    state, metrics = make_train_step(cfg, optim)(init_state(cfg, optim, seed=0, device="cpu"),
+                                                 _batch(cfg))
+    assert abs(loss - float(metrics["loss"])) <= TOL
+    assert abs(grad_norm / float(metrics["grad_norm"]) - 1) <= TOL
+    want = _flat(state)
+    assert set(leaves) == set(want)
+    for name, arr in want.items():
+        np.testing.assert_allclose(leaves[name], arr, rtol=0, atol=TOL, err_msg=name)

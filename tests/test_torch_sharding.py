@@ -28,6 +28,16 @@ from repro_torch.models import registry, spec
 from repro_torch.serve import abstract_cache, cache_pspecs
 from repro_torch.train import AdamW
 from repro_torch.train.step import batch_pspecs, state_pspecs
+from tests._torch_dist import destroy_default_group
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_group_outlives_this_file():
+    """The fake worlds this file's tests make are destroyed when the file
+    ends, so the next file on this pytest worker starts with no group."""
+    yield
+    destroy_default_group()
+
 
 RULES = {"default": (ref_spec.DEFAULT_RULES, spec.DEFAULT_RULES),
          "seq_shard": (ref_spec.seq_shard_rules(), spec.seq_shard_rules()),
