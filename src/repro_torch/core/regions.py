@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 import enum
 import threading
-import time
 from typing import Any, Callable, Iterable, Protocol, runtime_checkable
 
 import numpy as np
@@ -290,14 +289,12 @@ class DataRegion:
         if self.input_storage is None:
             raise RuntimeError(f"{self.key}: no input storage bound")
         backend = registry.get(self.input_storage)
-        t0 = time.perf_counter()
         arr = backend.get(self.key, self.roi)
         with self._lock:
             self._data = arr
             self._location = "host"
             self.stats["reads"] += 1
             self.stats["bytes_read"] += int(getattr(arr, "nbytes", 0))
-            self.stats["read_s"] = self.stats.get("read_s", 0.0) + time.perf_counter() - t0
         return arr
 
     def write(self, registry: StorageRegistry | None = None) -> None:
@@ -310,12 +307,10 @@ class DataRegion:
                 raise RuntimeError(f"{self.key}: nothing to write")
         backend = registry.get(self.output_storage)
         arr = self.to_host()
-        t0 = time.perf_counter()
         backend.put(self.key, self.roi, arr)
         with self._lock:
             self.stats["writes"] += 1
             self.stats["bytes_written"] += int(getattr(arr, "nbytes", 0))
-            self.stats["write_s"] = self.stats.get("write_s", 0.0) + time.perf_counter() - t0
 
     # -- host/device movement (paper: upload/download, sync or async) -----------
     def to_device(self, device=None, *, blocking: bool = False) -> torch.Tensor:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 TILE = 64  # tile side of the kernel (kTile in the source)
@@ -52,7 +53,8 @@ def morph_recon_cuda(marker: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             with _build.counter_lock:
                 launches += ROUNDS_PER_READ
             done += ROUNDS_PER_READ
-            header = state[:HEADER].tolist()
+            with spans.sync("morph_recon_worklist", mask.device):
+                header = state[:HEADER].tolist()
             if header[done % 3] == 0:
                 break
     with _build.counter_lock:

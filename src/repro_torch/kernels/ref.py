@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 # Fixed-point cap of the plain reconstruction and labeling (the reference's
 # defaults; ``fill_holes`` reconstructs under this cap too).
 REF_MAX_ITERS = 256
@@ -461,7 +463,8 @@ def percentile(x: torch.Tensor, q) -> torch.Tensor:
     high = np.clip(high, 0, nf - 1).astype(np.int64)
 
     def dev(a):
-        return torch.as_tensor(a, device=s.device)
+        with spans.sync("percentile", s.device):
+            return torch.as_tensor(a, device=s.device)
 
     out = s[dev(low)] * dev(lw) + s[dev(high)] * dev(hw)
     return out if np.ndim(q) else out[0]

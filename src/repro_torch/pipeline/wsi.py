@@ -26,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.wsi import PAPER_OP_COSTS, PAPER_OP_SPEEDUPS, WSIConfig
 from repro_torch.core import BoundingBox, RegionKind, StorageRegistry
 from repro_torch.core.regions import to_numpy
@@ -43,7 +44,17 @@ from repro_torch.storage import (
 
 def _stain_inverse(minv, device: torch.device) -> torch.Tensor:
     m = ref.stain_inverse() if minv is None else minv
-    return torch.as_tensor(m, dtype=torch.float32, device=device)
+    with spans.sync("stain_inverse", device):
+        return torch.as_tensor(m, dtype=torch.float32, device=device)
+
+
+def _upload(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. A host array bound for the card is a
+    pageable copy that the host waits for: the span ``wsi.upload``."""
+    if device.type == "cuda" and not (isinstance(x, torch.Tensor) and x.is_cuda):
+        with spans.span("wsi.upload"):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +105,11 @@ def segment_tile(
     ``minv`` is the 3x3 stain inverse (default ``ref.stain_inverse()``).
     """
     dev = resolve_device(device)
-    rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
-    stains = ops.color_deconv(rgb, _stain_inverse(minv, dev), impl=impl)
-    hema_n = _normalize(stains[0])  # hematoxylin density (nuclei stain)
-    return {**segment_mask(_threshold(hema_n, cfg), impl=impl), "hematoxylin": hema_n}
+    with spans.span("wsi.segment_tile", dev):
+        rgb = _upload(rgb, dev, torch.float32)
+        stains = ops.color_deconv(rgb, _stain_inverse(minv, dev), impl=impl)
+        hema_n = _normalize(stains[0])  # hematoxylin density (nuclei stain)
+        return {**segment_mask(_threshold(hema_n, cfg), impl=impl), "hematoxylin": hema_n}
 
 
 def extract_object_rois(
@@ -111,35 +123,38 @@ def extract_object_rois(
     clipped into the tile, zero-padded where the tile is smaller than R.
     """
     dev = resolve_device(device)
-    labels = torch.as_tensor(labels, device=dev)
-    intensity = torch.as_tensor(intensity, dtype=torch.float32, device=dev)
-    r = cfg.nucleus_roi
-    h, w = labels.shape
-    flat = labels.reshape(-1)
-    pix = torch.nonzero(flat >= 0).squeeze(1)
-    ids, slot = torch.unique(flat[pix], sorted=True, return_inverse=True)
-    n = ids.numel()
-    ys, xs = pix // w, pix % w
+    with spans.span("wsi.extract_object_rois", dev):
+        labels = _upload(labels, dev)
+        intensity = _upload(intensity, dev, torch.float32)
+        r = cfg.nucleus_roi
+        h, w = labels.shape
+        flat = labels.reshape(-1)
+        with spans.sync("rois_nonzero", dev):
+            pix = torch.nonzero(flat >= 0).squeeze(1)
+        with spans.sync("rois_unique", dev):
+            ids, slot = torch.unique(flat[pix], sorted=True, return_inverse=True)
+        n = ids.numel()
+        ys, xs = pix // w, pix % w
 
-    def reduce(init: int, vals: torch.Tensor, how: str) -> torch.Tensor:
-        out = torch.full((n,), init, dtype=vals.dtype, device=dev)
-        return out.scatter_reduce_(0, slot, vals, how)
+        def reduce(init: int, vals: torch.Tensor, how: str) -> torch.Tensor:
+            out = torch.full((n,), init, dtype=vals.dtype, device=dev)
+            return out.scatter_reduce_(0, slot, vals, how)
 
-    k = min(n, cfg.max_objects_per_tile)
-    y0, y1 = reduce(h, ys, "amin")[:k], reduce(-1, ys, "amax")[:k] + 1
-    x0, x1 = reduce(w, xs, "amin")[:k], reduce(-1, xs, "amax")[:k] + 1
-    cy, cx = (y0 + y1) // 2, (x0 + x1) // 2
-    y0 = torch.clamp(cy - r // 2, 0, max(h - r, 0))
-    x0 = torch.clamp(cx - r // 2, 0, max(w - r, 0))
-    boxes = torch.stack(
-        [y0, x0, torch.clamp(y0 + r, max=h), torch.clamp(x0 + r, max=w)], dim=1
-    ).to(torch.int32)
-    off = torch.arange(r, device=dev)
-    rows, cols = y0[:, None] + off, x0[:, None] + off  # (K, R) each
-    inside = (rows < h)[:, :, None] & (cols < w)[:, None, :]
-    crop = intensity[rows.clamp(max=h - 1)[:, :, None], cols.clamp(max=w - 1)[:, None, :]]
-    rois = torch.where(inside, crop, torch.zeros((), dtype=crop.dtype, device=dev))
-    return rois, boxes
+        k = min(n, cfg.max_objects_per_tile)
+        y0, y1 = reduce(h, ys, "amin")[:k], reduce(-1, ys, "amax")[:k] + 1
+        x0, x1 = reduce(w, xs, "amin")[:k], reduce(-1, xs, "amax")[:k] + 1
+        cy, cx = (y0 + y1) // 2, (x0 + x1) // 2
+        y0 = torch.clamp(cy - r // 2, 0, max(h - r, 0))
+        x0 = torch.clamp(cx - r // 2, 0, max(w - r, 0))
+        boxes = torch.stack(
+            [y0, x0, torch.clamp(y0 + r, max=h), torch.clamp(x0 + r, max=w)], dim=1
+        ).to(torch.int32)
+        off = torch.arange(r, device=dev)
+        rows, cols = y0[:, None] + off, x0[:, None] + off  # (K, R) each
+        inside = (rows < h)[:, :, None] & (cols < w)[:, None, :]
+        crop = intensity[rows.clamp(max=h - 1)[:, :, None], cols.clamp(max=w - 1)[:, None, :]]
+        rois = torch.where(inside, crop, torch.zeros((), dtype=crop.dtype, device=dev))
+        return rois, boxes
 
 
 def compute_features(rois, cfg: WSIConfig, impl: str = "auto", device=None) -> torch.Tensor:
@@ -155,10 +170,11 @@ def compute_features(rois, cfg: WSIConfig, impl: str = "auto", device=None) -> t
 def analyze_tile(
     rgb, cfg: WSIConfig, impl: str = "auto", device=None, minv=None
 ) -> dict:
-    seg = segment_tile(rgb, cfg, impl, device=device, minv=minv)
-    rois, boxes = extract_object_rois(seg["labels"], seg["hematoxylin"], cfg, device=device)
-    feats = compute_features(rois, cfg, impl, device=device)
-    return {**seg, "rois": rois, "boxes": boxes, "features": feats}
+    with spans.span("wsi.analyze_tile"):
+        seg = segment_tile(rgb, cfg, impl, device=device, minv=minv)
+        rois, boxes = extract_object_rois(seg["labels"], seg["hematoxylin"], cfg, device=device)
+        feats = compute_features(rois, cfg, impl, device=device)
+        return {**seg, "rois": rois, "boxes": boxes, "features": feats}
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +398,7 @@ class SegmentationStage(Stage):
     def run(self, ctx) -> Any:
         dev = self.device
         rgb_region = ctx.region("Patient", "RGB")
-        rgb = torch.as_tensor(rgb_region.data, device=dev)
+        rgb = _upload(rgb_region.data, dev)
         rt = self.get_region_template("Patient")
         roi = rgb_region.roi
         # mask/hema live on the spatial (H, W) domain; drop the channel axis
@@ -478,10 +494,7 @@ class FeatureStage(Stage):
 
         def rois():
             results["rois"], results["boxes"] = extract_object_rois(
-                torch.as_tensor(mask_region.data, device=dev),
-                torch.as_tensor(hema_region.data, device=dev),
-                self.cfg,
-                device=dev,
+                mask_region.data, hema_region.data, self.cfg, device=dev
             )
 
         t_rois = ctx.submit(
