@@ -1,6 +1,8 @@
 """The WSI tile path's spans on the card (``repro_torch.spans``): the
 profiler's clock, and each host-device synchronisation of a tile, span by
-span, against the ones ``torch.cuda.set_sync_debug_mode("warn")`` reports.
+span, against the ones ``torch.cuda.set_sync_debug_mode("warn")`` reports
+and the pinned uploads of ``repro_torch.staging``, whose waits on
+CUDA events the debug mode does not report.
 
     PYTHONPATH=src python scripts/probe_tile_spans.py [--size 4096] [--tiles 4]
 
@@ -9,13 +11,13 @@ Tiles come from the benchmark's generator (``rtbench/tiles.py``) and reach
 kernels and warms every shape. Then, for each later tile: its spans by name,
 with the host ms of each kind, the device ms of ``wsi.segment_tile`` and
 ``wsi.extract_object_rois``, the synchronisations that torch reported by
-source line, and whether the two counts agree. The clock line holds the
-offsets between a ``record_function`` range around a tile and the tile's
+source line, the staged uploads, and whether the counts agree. The clock
+line holds the offsets between a ``record_function`` range around a tile and the tile's
 root span, in microseconds. The cost line holds what the spans cost while
 the profiler records: microseconds a span (with and without CUDA events)
 over many empty spans, a few hundred open at a time as in a traced window,
 and the median host ms of a tile whose RGB is already on the card (so that
-the pageable upload's spread leaves the comparison) with the spans on and
+the upload's spread leaves the comparison) with the spans on and
 switched off, in turns, under one profiler. Prints one JSON line a tile,
 a clock line, a cost line and a last line ``{"ok": ...}``; exits 1 where a
 count or the clock disagrees.
@@ -38,7 +40,7 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 import torch  # noqa: E402
 
-from repro_torch import spans  # noqa: E402
+from repro_torch import spans, staging  # noqa: E402
 from repro_torch.configs.wsi import WSIConfig  # noqa: E402
 from repro_torch.pipeline import analyze_tile  # noqa: E402
 from rtbench import tiles  # noqa: E402
@@ -61,6 +63,7 @@ ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivi
 def one_tile(rgb, cfg) -> dict:
     """One tile under the profiler and the sync debug mode."""
     spans.reset()
+    staging.reset_stats()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -88,8 +91,10 @@ def one_tile(rgb, cfg) -> dict:
         entry["n"] += 1
     syncs = sum(k["n"] for name, k in kinds.items() if is_sync(name))
     reported = sum(v["n"] for v in lines.values())
+    staged = staging.stats()["staged_uploads"]
     return {"spans": kinds, "host_syncs": syncs, "reported": reported,
-            "reported_by_line": lines, "agree": syncs == reported}
+            "reported_by_line": lines, "staged_uploads": staged,
+            "agree": syncs == reported + staged}
 
 
 def clock(rgb, cfg) -> dict:

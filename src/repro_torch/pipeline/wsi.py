@@ -26,7 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import spans
+from repro_torch import spans, staging
 from repro_torch.configs.wsi import PAPER_OP_COSTS, PAPER_OP_SPEEDUPS, WSIConfig
 from repro_torch.core import BoundingBox, RegionKind, StorageRegistry
 from repro_torch.core.regions import to_numpy
@@ -50,11 +50,12 @@ def _stain_inverse(minv, device: torch.device) -> torch.Tensor:
 
 def _upload(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x`` as a tensor on ``device``. A host array bound for the card is a
-    pageable copy that the host waits for: the span ``wsi.upload``."""
+    copy that the host waits for, through pinned memory
+    (``staging.upload``) where it is contiguous: the span ``wsi.upload``."""
     if device.type == "cuda" and not (isinstance(x, torch.Tensor) and x.is_cuda):
         with spans.span("wsi.upload"):
-            return torch.as_tensor(x, dtype=dtype, device=device)
-    return torch.as_tensor(x, dtype=dtype, device=device)
+            return staging.upload(x, device, dtype)
+    return staging.upload(x, device, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,213 @@
+"""Host-to-card uploads through pinned memory (``repro_torch.staging``).
+
+On the CPU: which inputs engage the pinned path, the counters of
+``pipeline/wsi.py::_upload`` under threads, and the benchmark's reader of
+them. The tests marked ``cuda`` skip where no card is present; on the card
+they hold staged uploads bit for bit against ``torch.as_tensor``.
+"""
+import importlib.util
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import staging
+from repro_torch.pipeline import wsi
+
+N = 1 << 22  # elements of a 16 MiB float32 array
+READER = Path(__file__).resolve().parents[1] / "rtbench" / "metrics" / "staged_upload_share.wsi.py"
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def counts():
+    staging.reset_stats()
+    yield staging.stats
+    staging.reset_stats()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def share_reader():
+    spec = importlib.util.spec_from_file_location("staged_upload_share", READER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("make, engages", [
+    (lambda: np.zeros(N, np.float32), True),
+    (lambda: np.arange(12, dtype=np.int32).reshape(3, 4), True),  # small: one path for all sizes
+    (lambda: np.zeros(0, np.float32), True),
+    (lambda: np.array(1.5), True),  # zero dimensions
+    (lambda: np.zeros((2, N), np.float32)[:, ::2], False),  # not contiguous
+    (lambda: np.zeros((N, 2), np.float32).T, False),  # Fortran order
+    (lambda: np.zeros(8, ">f4"), False),  # a byte order torch cannot view
+    (lambda: torch.zeros(4 * N, dtype=torch.uint8), True),
+    (lambda: torch.arange(10.0)[3:], True),  # a contiguous view at an offset
+    (lambda: torch.zeros(N, requires_grad=True), False),  # as_tensor records its copy
+    (lambda: torch.zeros(8 * N, dtype=torch.uint8)[::2], False),
+], ids=["array", "small", "empty", "scalar", "strided", "fortran", "byteswapped", "tensor",
+        "tensor-view", "grad", "strided-tensor"])
+def test_pinned_path_takes_contiguous_host_arrays(make, engages):
+    x = make()
+    src = staging._host_tensor(x)
+    assert (src is not None) == engages
+    if engages and src.numel():  # a view of the source, not a copy
+        assert src.data_ptr() == (x.data_ptr() if isinstance(x, torch.Tensor)
+                                  else x.ctypes.data)
+
+
+def test_upload_on_the_cpu_is_direct_and_counted(counts):
+    big = np.arange(N + 3, dtype=np.float32)
+    small = np.arange(12, dtype=np.int32).reshape(3, 4)
+    got = wsi._upload(big, CPU)
+    assert torch.equal(got, torch.as_tensor(big))
+    assert torch.equal(wsi._upload(small, CPU, torch.float32),
+                       torch.as_tensor(small, dtype=torch.float32))
+    assert counts() == {"staged_uploads": 0, "staged_bytes": 0,
+                        "direct_uploads": 2, "direct_bytes": big.nbytes + small.nbytes}
+    staging.reset_stats()
+    assert set(counts().values()) == {0}
+
+
+def test_a_cpu_tensor_for_the_cpu_is_returned_as_it_is(counts):
+    """As ``torch.as_tensor``: no copy, and counted as direct."""
+    x = torch.arange(6.0).reshape(2, 3)
+    assert wsi._upload(x, CPU) is x
+    assert counts()["direct_uploads"] == 1 and counts()["staged_uploads"] == 0
+
+
+def test_the_counters_lose_no_upload_under_threads(counts):
+    """More threads than cores upload at once, switching often."""
+    x = np.ones((7, 5), np.float64)
+    threads, rounds = 16, 200
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        workers = [threading.Thread(target=lambda: [staging.upload(x, CPU) for _ in range(rounds)])
+                   for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    n = threads * rounds
+    assert counts() == {"staged_uploads": 0, "staged_bytes": 0,
+                        "direct_uploads": n, "direct_bytes": n * x.nbytes}
+
+
+def test_the_benchmark_reads_the_staged_share_and_clears_it(counts):
+    read = share_reader()
+    assert read(None) is None  # nothing uploaded
+    staging._count("staged", 300)
+    staging._count("direct", 100)
+    assert read(None) == pytest.approx(75.0)
+    assert read(None) is None  # the first read took the counts
+    staging._count("direct", 5)
+    assert read(None) == 0.0
+
+
+def test_a_program_without_staging_reads_none(counts, monkeypatch):
+    monkeypatch.delattr(repro_torch, "staging")
+    monkeypatch.setitem(sys.modules, "repro_torch.staging", None)  # the import fails
+    staging._count("staged", 300)
+    assert share_reader()(None) is None
+    assert staging.stats()["staged_bytes"] == 300  # left alone
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+CASES = {
+    "float32": (lambda g: g.standard_normal((3, 4096, 4096), np.float32), None),
+    "float32-ragged": (lambda g: g.standard_normal((3, 4095, 4097), np.float32), None),
+    "int32": (lambda g: g.integers(-2**31, 2**31 - 1, (4096, 4096), np.int32), None),
+    "uint8-to-float32": (lambda g: g.integers(0, 256, (3, 4096, 4096), np.uint8),
+                         torch.float32),
+    "float64-to-float32": (lambda g: g.standard_normal((4096, 4096)) * 1e3, torch.float32),
+    "small-int32": (lambda g: g.integers(-2**31, 2**31 - 1, (3, 4), np.int32), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_staged_equals_as_tensor_bit_for_bit(card, counts, case):
+    make, dtype = CASES[case]
+    x = make(np.random.default_rng(7))
+    got = staging.upload(x, card, dtype)
+    assert counts()["staged_uploads"] == 1 and counts()["staged_bytes"] == x.nbytes
+    want = torch.as_tensor(x, dtype=dtype, device=card)
+    assert got.device.type == "cuda" and got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.cuda
+def test_a_cpu_tensor_and_a_side_stream_stage_too(card, counts):
+    x = torch.randn(3, 2048, 2048)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = staging.upload(x, card)
+    assert counts()["staged_uploads"] == 1
+    assert torch.equal(bits(got.cpu()), bits(x))  # on the card when upload returned
+
+
+@pytest.mark.cuda
+def test_a_non_contiguous_input_goes_direct(card, counts):
+    x = np.random.default_rng(3).standard_normal((4096, 8192), np.float32)[:, ::2]
+    got = wsi._upload(x, card)
+    assert counts() == {"staged_uploads": 0, "staged_bytes": 0,
+                        "direct_uploads": 1, "direct_bytes": x.nbytes}
+    assert torch.equal(bits(got), bits(torch.as_tensor(x, device=card)))
+
+
+@pytest.mark.cuda
+def test_overwriting_the_source_after_return_leaves_the_card_alone(card, counts):
+    x = np.random.default_rng(5).standard_normal((3, 4096, 4096), np.float32)
+    want = x.copy()
+    got = wsi._upload(x, card, torch.float32)
+    x[...] = -1.0  # at once, before anything else touches the card
+    assert counts()["staged_uploads"] == 1
+    assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_four_threads_upload_at_once_and_all_land(card, counts):
+    xs = [np.full((2, 4096, 4096), i, np.int32) + np.arange(4096, dtype=np.int32)
+          for i in range(4)]
+    got = [None] * 4
+    errors = []
+    start = threading.Barrier(4)
+
+    def work(i):
+        try:
+            start.wait(timeout=30)
+            for _ in range(3):
+                got[i] = staging.upload(xs[i], card)
+        except Exception as err:  # noqa: BLE001 — reported by the assertion below
+            errors.append(err)
+
+    workers = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    assert not any(w.is_alive() for w in workers) and not errors, errors
+    assert counts()["staged_uploads"] == 12
+    for i in range(4):
+        assert torch.equal(got[i].cpu(), torch.from_numpy(xs[i]))
