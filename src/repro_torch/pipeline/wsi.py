@@ -38,6 +38,7 @@ from repro_torch.storage import (
     PlacementPolicy,
     SocketTransport,
     TieredStore,
+    copies,
     spawn_servers,
 )
 
@@ -460,9 +461,9 @@ class SegmentationStage(Stage):
             deps=[t_recon],
         )
 
-        def finalize():
-            mask_region.set_data(to_numpy(results["BWLabel"]))
-            hema_region.set_data(to_numpy(results["hema_n"]))
+        def finalize():  # into reused host buffers, which the stores keep as they are
+            mask_region.set_data(copies.download(results["BWLabel"]))
+            hema_region.set_data(copies.download(results["hema_n"]))
 
         ctx.submit(Task("stage-finalize", cpu_fn=finalize, deps=[t_label],
                         cost=TaskCost(cpu_s=0.05)))

@@ -99,6 +99,7 @@ class Task:
         # PATS schedules on the *estimate*; execution cost uses the truth
         # (cost.speedup).  None = estimate equals truth (Fig. 17 baseline).
         self.est_speedup: float | None = None
+        self.span_outer = None  # the span open where it was submitted (ThreadedWRM)
 
     @property
     def speedup(self) -> float:
@@ -153,6 +154,7 @@ class Stage:
         self.worker: int | None = None
         self.result: Any = None
         self.error: BaseException | None = None
+        self.ready_ns: int | None = None  # when it became ready, while spans record
         self._lock = threading.Lock()
         # per-executing-thread template copies: retries may overlap with a
         # zombie execution on a dead worker; each must see its own copy

@@ -14,6 +14,12 @@ instance.  Each Worker runs a Worker Coordinator (WCT) that
   4. stages output data regions to their global storage backends,
   5. notifies the Manager, which releases dependent stages.
 
+While a profiler records, each stage leaves two spans (``repro_torch.spans``):
+``rt.dispatch``, from the moment it became ready (submitted with no
+dependency, its last dependency done, or re-queued) to the moment its
+worker started it, and ``rt.stage.<class>`` around its execution on the
+worker; the spans of its tasks nest under the latter.
+
 Fault tolerance beyond the paper (needed at 1000+ nodes):
   * heartbeat-based worker failure detection; in-flight stages of a dead
     worker are re-queued (stage writes are idempotent — last staged wins);
@@ -28,6 +34,7 @@ import threading
 import time
 from typing import Any
 
+from repro_torch import spans
 from repro_torch.core.regions import STORAGE, DataRegion, RegionTemplate, StorageRegistry
 from repro_torch.runtime.dag import (
     Stage,
@@ -87,83 +94,14 @@ class Worker:
             ).start()
 
     def _handle_stage(self, stage: Stage) -> None:
+        ready_ns, stage.ready_ns = stage.ready_ns, None
+        if ready_ns is not None:
+            spans.record("rt.dispatch", ready_ns, time.time_ns())
         try:
             if not self.alive:
                 return
-            stage.state = StageState.RUNNING
-            # Worker-local template copies (metadata only, paper S3.2).
-            # Copies are bound per-thread: a zombie execution on a dead
-            # worker must never leak its (mutated) templates into a retry.
-            local_templates = {
-                k: RegionTemplate.unpack(v.pack()) for k, v in stage.templates.items()
-            }
-            stage.bind_thread_templates(local_templates)
-            ctx = StageContext(
-                stage,
-                self,
-                submit_task=self.wrm.submit,
-                spawn_stage=self.manager.execute_component,
-            )
-            submitted: list[Task] = []
-            orig_submit = ctx._submit_task
-
-            def tracking_submit(task: Task) -> None:
-                submitted.append(task)
-                orig_submit(task)
-
-            ctx._submit_task = tracking_submit
-
-            # (2) materialize inputs — overlaps other stages' compute
-            for b in stage.input_bindings():
-                rt = local_templates[b.template]
-                try:
-                    region = rt.get(b.region)
-                except KeyError:
-                    # region produced upstream but unknown to this stage's
-                    # metadata: associative query against global storage
-                    # (paper S3.3: query interface on the tuple identifier)
-                    backend = self.registry.get(b.read_storage)
-                    cands = backend.query(rt.namespace, b.region)
-                    if not cands:
-                        raise
-                    key, bb = max(cands, key=lambda kv: (kv[0].timestamp, kv[0].version))
-                    region = DataRegion(key, bb, input_storage=b.read_storage, lazy=True)
-                    rt.insert(region)
-                local = region.with_roi(b.roi)
-                if b.read_storage:
-                    local.input_storage = b.read_storage
-                    # record which storage layer serves this input
-                    # (observable consumption of the locality query)
-                    tier = self.registry.locality(b.read_storage, region.key)
-                    with self.manager._lock:
-                        self.manager.events.append(
-                            ("locality", (stage.sid, b.region, tier))
-                        )
-                local.instantiate(self.registry)
-                ctx.regions[(b.template, b.region)] = local
-
-            # (3) run the body; fine-grain tasks flow through the WRM
-            stage.result = stage.run(ctx)
-            self._wait_tasks(submitted)
-
-            # (4) stage outputs to global storage
-            for b in stage.output_bindings():
-                rt = local_templates[b.template]
-                region = rt.get(b.region)
-                if region.empty():
-                    raise RuntimeError(
-                        f"stage {stage.name}: output region {b.region!r} never materialized"
-                    )
-                out = region.with_roi(b.roi)
-                out._data = region.to_host()
-                out._location = "host"
-                out.output_storage = b.storage or region.output_storage
-                out.write(self.registry)
-            if not self.alive:
-                return  # died mid-stage: manager's heartbeat will requeue
-            # expose the winning execution's templates for inspection
-            stage.templates = local_templates
-            self.manager._notify_done(stage, self.wid)
+            with spans.span("rt.stage." + type(stage).__name__):
+                self._run_stage(stage)
         except BaseException as e:  # noqa: BLE001
             stage.error = e
             if self.alive:
@@ -171,6 +109,83 @@ class Worker:
         finally:
             stage.unbind_thread_templates()
             self._slots.release()
+
+    def _run_stage(self, stage: Stage) -> None:
+        """Steps (1)-(5) of the module's docstring, for one stage instance."""
+        stage.state = StageState.RUNNING
+        # Worker-local template copies (metadata only, paper S3.2).
+        # Copies are bound per-thread: a zombie execution on a dead
+        # worker must never leak its (mutated) templates into a retry.
+        local_templates = {
+            k: RegionTemplate.unpack(v.pack()) for k, v in stage.templates.items()
+        }
+        stage.bind_thread_templates(local_templates)
+        ctx = StageContext(
+            stage,
+            self,
+            submit_task=self.wrm.submit,
+            spawn_stage=self.manager.execute_component,
+        )
+        submitted: list[Task] = []
+        orig_submit = ctx._submit_task
+
+        def tracking_submit(task: Task) -> None:
+            submitted.append(task)
+            orig_submit(task)
+
+        ctx._submit_task = tracking_submit
+
+        # (2) materialize inputs — overlaps other stages' compute
+        for b in stage.input_bindings():
+            rt = local_templates[b.template]
+            try:
+                region = rt.get(b.region)
+            except KeyError:
+                # region produced upstream but unknown to this stage's
+                # metadata: associative query against global storage
+                # (paper S3.3: query interface on the tuple identifier)
+                backend = self.registry.get(b.read_storage)
+                cands = backend.query(rt.namespace, b.region)
+                if not cands:
+                    raise
+                key, bb = max(cands, key=lambda kv: (kv[0].timestamp, kv[0].version))
+                region = DataRegion(key, bb, input_storage=b.read_storage, lazy=True)
+                rt.insert(region)
+            local = region.with_roi(b.roi)
+            if b.read_storage:
+                local.input_storage = b.read_storage
+                # record which storage layer serves this input
+                # (observable consumption of the locality query)
+                tier = self.registry.locality(b.read_storage, region.key)
+                with self.manager._lock:
+                    self.manager.events.append(
+                        ("locality", (stage.sid, b.region, tier))
+                    )
+            local.instantiate(self.registry)
+            ctx.regions[(b.template, b.region)] = local
+
+        # (3) run the body; fine-grain tasks flow through the WRM
+        stage.result = stage.run(ctx)
+        self._wait_tasks(submitted)
+
+        # (4) stage outputs to global storage
+        for b in stage.output_bindings():
+            rt = local_templates[b.template]
+            region = rt.get(b.region)
+            if region.empty():
+                raise RuntimeError(
+                    f"stage {stage.name}: output region {b.region!r} never materialized"
+                )
+            out = region.with_roi(b.roi)
+            out._data = region.to_host()
+            out._location = "host"
+            out.output_storage = b.storage or region.output_storage
+            out.write(self.registry)
+        if not self.alive:
+            return  # died mid-stage: manager's heartbeat will requeue
+        # expose the winning execution's templates for inspection
+        stage.templates = local_templates
+        self.manager._notify_done(stage, self.wid)
 
     def _wait_tasks(self, tasks: list[Task]) -> None:
         from repro_torch.runtime.dag import TaskState
@@ -237,7 +252,13 @@ class Manager:
         with self._lock:
             self.stages[stage.sid] = stage
             self._done_evt.clear()
+            self._mark_ready(stage)
         return stage
+
+    def _mark_ready(self, stage: Stage) -> None:
+        """Note when ``stage`` became ready, for its ``rt.dispatch`` span."""
+        if spans.enabled() and all(d.state == StageState.DONE for d in stage.deps):
+            stage.ready_ns = time.time_ns()
 
     def add_worker(self, worker: Worker) -> None:
         with self._lock:
@@ -256,6 +277,10 @@ class Manager:
             self.stages[stage.sid] = stage
             self._inflight.pop(stage.sid, None)
             self.events.append(("done", (stage.sid, wid)))
+            if spans.enabled():
+                for waiting in self.stages.values():
+                    if waiting.state == StageState.WAITING and stage in waiting.deps:
+                        self._mark_ready(waiting)
 
     def _notify_failed(self, stage: Stage, wid: int, err: BaseException) -> None:
         with self._lock:
@@ -269,6 +294,7 @@ class Manager:
                 self._done_evt.set()  # unrecoverable: surface to run()
             else:
                 stage.state = StageState.WAITING  # re-queue elsewhere
+                self._mark_ready(stage)
 
     # -- main loop --------------------------------------------------------------------
     def run(self, poll: float = 0.005) -> None:
@@ -406,6 +432,7 @@ class Manager:
                 if stage.state in (StageState.DISPATCHED, StageState.RUNNING):
                     stage.state = StageState.WAITING
                     stage.attempts += 1
+                    self._mark_ready(stage)
                 self._inflight.pop(sid, None)
                 self.events.append(("requeue", (sid, wid)))
 
@@ -459,3 +486,8 @@ class SysEnv:
     def finalize_system(self) -> None:
         for w in self.workers:
             w.shutdown()
+        # the manager and its workers refer to each other: once they are shut
+        # down the manager lets go of them, so that the stages and their data
+        # are freed with their last reference, not by the garbage collector
+        with self.manager._lock:
+            self.manager.workers.clear()

@@ -30,6 +30,7 @@ import heapq
 import threading
 from typing import Callable, Iterable
 
+from repro_torch import spans
 from repro_torch.runtime.dag import DeviceKind, Task, TaskState
 from repro_torch.storage.tiers import TIER_BANDWIDTH
 
@@ -191,7 +192,13 @@ class _DepTracker:
 # Real threaded engine
 # ---------------------------------------------------------------------------
 class ThreadedWRM:
-    """One computing thread per device (paper Fig. 5), real execution."""
+    """One computing thread per device (paper Fig. 5), real execution.
+
+    A task runs under the span that was open where it was submitted
+    (``repro_torch.spans``), and lets go of its callables and arguments once
+    it has run: what they captured, device tensors among it, is freed as the
+    task ends, not when the garbage collector reaches the task graph's
+    cycles (``deps`` and ``children``)."""
 
     def __init__(self, devices: Iterable[Device], cfg: SchedulerConfig | None = None):
         self.devices = list(devices)
@@ -212,6 +219,7 @@ class ThreadedWRM:
             t.start()
 
     def submit(self, task: Task) -> Task:
+        task.span_outer = spans.current()
         with self._cv:
             self._outstanding += 1
             self.deps.admit(task, self.ready)
@@ -234,12 +242,15 @@ class ThreadedWRM:
             t0 = _time.perf_counter()
             try:
                 fn = task.fn_for(dev.kind)
-                task.result = fn(*task.args, **task.kwargs) if fn else None
+                with spans.within(task.span_outer):
+                    task.result = fn(*task.args, **task.kwargs) if fn else None
                 task.state = TaskState.DONE
             except BaseException as e:  # noqa: BLE001 - surfaced via task.error
                 task.error = e
                 task.state = TaskState.FAILED
             dt = _time.perf_counter() - t0
+            fn = None
+            task.variants, task.args, task.kwargs, task.span_outer = {}, (), {}, None
             task.ran_on = dev.kind
             with self._cv:
                 prof = self.profile.setdefault(

@@ -1,4 +1,5 @@
-"""Spans of the WSI tile path, recorded only while a torch profiler records.
+"""Spans of the WSI tile path and of the region-template runtime and stores,
+recorded only while a torch profiler records.
 
 An operator who profiles the program (``torch.profiler.profile``) reads the
 program's own spans afterwards with :func:`records`: which step of a tile
@@ -10,8 +11,15 @@ check of the profiler's process-wide flag, and no CUDA event is made.
 A record holds the span's name, its start and end in nanoseconds on the
 profiler's clock, its parent (the innermost span open on the thread when it
 opened) and its root (the outermost one; every span of one tile shares the
-root of ``wsi.analyze_tile``). The profiler's clock is the epoch clock
-(``time.time_ns()``): an event of ``prof.events()`` starts at
+root of ``wsi.analyze_tile``). Work handed to another thread nests under
+the span open where it was handed over: :func:`current` takes that span and
+:func:`within` opens the other thread's spans under it, as the runtime's
+WRM threads do for the tasks of a stage. :func:`record` keeps a span whose
+start was taken elsewhere, such as a stage's wait from the moment it became
+ready, on one thread, to the moment another thread started it.
+
+The profiler's clock is the epoch clock (``time.time_ns()``): an event of
+``prof.events()`` starts at
 ``prof.profiler.kineto_results.trace_start_ns() + 1000 * e.time_range.start``
 nanoseconds, on torch 2.13 (CPU) and on 2.11 with CUDA 12.8 (H100), so the
 program's spans and the profiler's events lie on one time line. A span
@@ -99,6 +107,11 @@ class _Open:
             _closed.append(self)
 
 
+def enabled() -> bool:
+    """Whether spans record now: a profiler of the process runs."""
+    return _profiler._is_profiler_enabled
+
+
 def span(name: str, device: torch.device | None = None):
     """A context that records the span ``name`` while a profiler records;
     with CUDA timing events on ``device``'s current stream where ``device``
@@ -115,6 +128,58 @@ def sync(site: str, device: torch.device):
     if not _profiler._is_profiler_enabled or device.type != "cuda":
         return _OFF
     return _Open("sync." + site, None)
+
+
+def record(name: str, start_ns: int, end_ns: int) -> None:
+    """Keep the closed span ``name`` from ``start_ns`` to ``end_ns`` (epoch
+    nanoseconds, from ``time.time_ns()`` on any thread), under the innermost
+    span open on the calling thread; only while a profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return
+    rec = _Open(name, None)
+    stack = getattr(_local, "stack", None)
+    outer = stack[-1] if stack else None
+    rec.id = next(_ids)
+    rec.parent = outer.id if outer else None
+    rec.root = outer.root if outer else rec.id
+    rec.start_ns, rec.end_ns = int(start_ns), int(end_ns)
+    with _lock:
+        _closed.append(rec)
+
+
+def current():
+    """The innermost span open on the calling thread, for :func:`within` on
+    another thread; None with none open or no profiler recording."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    stack = getattr(_local, "stack", None)
+    return stack[-1] if stack else None
+
+
+class _Within:
+    """Spans opened on this thread while it is entered nest under ``outer``."""
+
+    __slots__ = ("outer",)
+
+    def __init__(self, outer: _Open) -> None:
+        self.outer = outer
+
+    def __enter__(self) -> None:
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self.outer)
+
+    def __exit__(self, *exc) -> None:
+        _local.stack.pop()
+
+
+def within(outer):
+    """A context in which the calling thread's spans nest under ``outer``, a
+    span that :func:`current` took on another thread (a no-op for None)."""
+    if outer is None:
+        return _OFF
+    return _Within(outer)
 
 
 def _device_ms(events) -> float | None:

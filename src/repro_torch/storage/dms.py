@@ -61,9 +61,11 @@ from typing import Iterable, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core.bbox import BoundingBox
 from repro_torch.core.hilbert import sfc_index, sfc_order_for
 from repro_torch.core.regions import RegionKey
+from repro_torch.storage import copies
 from repro_torch.storage.membership import RingView, TokenBucket, adopt_newer
 
 
@@ -278,6 +280,7 @@ class _Server:
         # survives clear() deliberately — a purged shard must not roll
         # a key's generation back below what clients already observed.
         self._gens: dict[str, int] = {}
+        self._spares = copies.Spares()
 
     def gen(self, bump=None, want=None) -> dict[str, int]:
         """Bump-and-read the write-generation table: each token in
@@ -306,10 +309,16 @@ class _Server:
         # with client arrays.  ``owned=True`` skips the copy when the
         # caller hands over a private buffer (the socket server decodes
         # each frame into one; copying it again would double the memory
-        # traffic of every replicated put).
+        # traffic of every replicated put).  Without an arena the copy
+        # goes into a buffer an earlier block of its size let go of
+        # (``copies.Spares``): never written in place while anything reads
+        # it, so a read may hand the block out as it is; an array already
+        # in such a buffer is kept as it is (``copies.immutable``).
         if isinstance(payload, np.ndarray):
-            if not owned:
-                payload = np.array(payload, copy=True)
+            heap = self.arena is None
+            if not owned and not (heap and copies.immutable(payload)):
+                copies.count("put", payload.nbytes)
+                payload = self._spares.copy(payload) if heap else np.array(payload, copy=True)
             payload.setflags(write=False)
         with self._lock:
             bk = (key, block_coord)
@@ -452,8 +461,12 @@ class InProcTransport:
     The RDMA stand-in.  ``link_bandwidth`` (bytes/s) and ``latency`` (s)
     feed a *virtual time* model used by benchmarks (no sleeping): each
     message advances a per-endpoint clock, and aggregate throughput is
-    bytes / max(clock).
+    bytes / max(clock).  A fetch returns a read-only view of the resident
+    block, which is never written in place (``shares_blocks``): a read
+    covered by one block may return that view without a copy.
     """
+
+    shares_blocks = True
 
     def __init__(self, num_servers: int, link_bandwidth: float = 6.0e9, latency: float = 2e-6):
         self.num_servers = int(num_servers)
@@ -1033,8 +1046,13 @@ class DistributedMemoryStorage:
         strictly-consistent metadata broadcast fails) — and then it
         best-effort drops the blocks and directory entries it INTRODUCED
         (never an existing key's previous incarnation), so a failed put
-        never leaks orphaned payload bytes.
+        never leaks orphaned payload bytes.  While a profiler records, the
+        put is the span ``dms.put`` (``repro_torch.spans``).
         """
+        with spans.span("dms.put"):
+            self._put(key, bb, array)
+
+    def _put(self, key: RegionKey, bb: BoundingBox, array: np.ndarray) -> None:
         array = np.asarray(array)
         if tuple(array.shape)[: bb.rank] != bb.shape:
             raise ValueError(f"payload shape {array.shape} != bb shape {bb.shape}")
@@ -1048,7 +1066,10 @@ class DistributedMemoryStorage:
                 part = blk_box.intersect(bb)
                 if part.is_empty:
                     continue
-                payload = np.ascontiguousarray(array[part.local_slices(bb)])
+                view = array[part.local_slices(bb)]
+                payload = np.ascontiguousarray(view)
+                if payload is not view:
+                    copies.count("put", payload.nbytes)
                 homes = self._store_replicated(key, bc, part, payload, dead, placed)
                 meta.append((key, bc, part, encode_homes(homes)))
             # metadata propagation to every server (cheap, paper S5.4) —
@@ -1324,8 +1345,22 @@ class DistributedMemoryStorage:
         return pieces
 
     def get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
+        """The ROI ``roi`` of ``key``, assembled from its blocks.  Where one
+        block of an in-process fleet covers the ROI, the answer is a
+        read-only view of that block, which the store never writes in
+        place; else a fresh array.  While a profiler records, the read is
+        the span ``dms.get`` and its assembly ``dms.assemble``."""
+        with spans.span("dms.get"):
+            return self._get(key, roi)
+
+    def _assemble(self, pieces, roi: BoundingBox):
         from repro_torch.storage.tiers import _assemble
 
+        with spans.span("dms.assemble"):
+            return _assemble(pieces, roi,
+                             share=getattr(self.transport, "shares_blocks", False))
+
+    def _get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
         # any server's directory can answer the lookup: rotate + fail
         # over instead of pinning server 0 (the old single point of
         # failure for every read on a real fleet)
@@ -1338,7 +1373,7 @@ class DistributedMemoryStorage:
             if box.intersects(roi)
         ]
         pieces = self._fetch_blocks(key, blocks)
-        out, covered = _assemble(pieces, roi)
+        out, covered = self._assemble(pieces, roi)
         if (out is None or not covered.all()) and self.replication > 1:
             # the answering directory may have been a rejoined server's
             # partial one (it received only post-rejoin broadcasts):
@@ -1362,7 +1397,7 @@ class DistributedMemoryStorage:
             if extra:
                 self._count("directory_repairs")
                 pieces.extend(self._fetch_blocks(key, extra))
-                out, covered = _assemble(pieces, roi)
+                out, covered = self._assemble(pieces, roi)
         if out is None:
             raise KeyError(f"DMS: {key} has no blocks intersecting {roi}")
         if not covered.all():

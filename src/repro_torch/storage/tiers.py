@@ -43,6 +43,7 @@ import numpy as np
 
 from repro_torch.core.bbox import BoundingBox
 from repro_torch.core.regions import RegionKey, StorageBackend
+from repro_torch.storage import copies
 from repro_torch.storage.placement import Placement, PlacementPolicy
 
 # Per-tier staging bandwidth defaults (bytes/s) used by the runtime to
@@ -58,24 +59,37 @@ TIER_BANDWIDTH: dict[str, float] = {
 def _assemble(
     pieces: Iterable[tuple[BoundingBox, np.ndarray]],
     roi: BoundingBox,
+    *,
+    share: bool = False,
 ) -> tuple[np.ndarray | None, "np.ndarray | None"]:
     """Overlay (bb, array) pieces (each array spanning its bb) onto an
     ROI-shaped output.  Later pieces win on overlap — coverage is a
     boolean mask, so overlapping pieces are never double-counted.
     Returns (out, covered); out is None when nothing intersects.
+
+    With ``share`` (pieces that are read-only and never written in place)
+    a ROI that one piece covers, contiguously, is that piece's view, with
+    no copy and a read-only ``covered``.  Every copy counts in
+    ``copies.stats()`` as a get.
     """
+    pieces = [(bb, arr) for bb, arr in pieces if not bb.intersect(roi).is_empty]
+    if share and len(pieces) == 1 and pieces[0][0].contains(roi):
+        bb, arr = pieces[0]
+        view = arr[roi.local_slices(bb)]
+        if view.flags.c_contiguous and not view.flags.writeable:
+            return view, np.broadcast_to(np.True_, roi.shape)
     out = None
     covered = None
     for bb, arr in pieces:
         part = bb.intersect(roi)
-        if part.is_empty:
-            continue
         if out is None:
             trailing = arr.shape[bb.rank:]
             out = np.zeros(roi.shape + trailing, dtype=arr.dtype)
             covered = np.zeros(roi.shape, dtype=bool)
         out[part.local_slices(roi)] = arr[part.local_slices(bb)]
         covered[part.local_slices(roi)] = True
+    if out is not None:
+        copies.count("get", out.nbytes)
     return out, covered
 
 

@@ -1,19 +1,37 @@
 """The port's spans (``repro_torch.spans``): recorded only while a torch
 profiler records, nested by tile, on the profiler's clock, and never drawn
-into the profiler's trace. The last test is marked ``cuda`` and skips where
-no card is present: on the card it counts one tile's host-device
-synchronisations, span by span and against ``torch.cuda.set_sync_debug_mode``.
+into the profiler's trace. The test marked ``cuda`` skips where no card is
+present: on the card it counts one tile's host-device synchronisations,
+span by span and against ``torch.cuda.set_sync_debug_mode``. The last tests
+hold the region-template runtime's spans (``rt.stage.*``, ``rt.dispatch``)
+and the stores' (``dms.*``) on one image at one GPU's share of a node, and
+the benchmark's readers of them.
 """
+import sys
 import threading
+import time
 import warnings
+from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import spans
 from repro_torch.configs.wsi import WSIConfig
+from repro_torch.core import BoundingBox, Intent, RegionTemplate
 from repro_torch.kernels import morph_recon
-from repro_torch.pipeline import analyze_tile, make_tile
+from repro_torch.pipeline import (
+    FeatureStage,
+    SegmentationStage,
+    analyze_tile,
+    make_tile,
+    make_wsi_storage,
+)
+from repro_torch.runtime import SysEnv
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the benchmark's readers
 
 CFG = WSIConfig(tile=256, max_objects_per_tile=32)
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -153,3 +171,123 @@ def test_one_card_tile_counts_its_host_syncs():
     for name in ("wsi.segment_tile", "wsi.extract_object_rois"):
         (rec,) = by_name(recs)[name]
         assert rec.device_ms is not None and rec.device_ms > 0
+
+
+# -- the region-template runtime and stores ---------------------------------------------
+NODE_CFG = WSIConfig(tile=128, max_objects_per_tile=16)
+
+
+def rt_image(n: int = 4) -> dict:
+    """One image of ``n`` 128^2 tiles through the RT stages at one GPU's share
+    of a node (3 CPU threads, 1 accelerator thread, 4 stages active), the
+    tiles through the in-process DMS; returns the stages by tile."""
+    size = NODE_CFG.tile
+    reg = make_wsi_storage(size, n * size, tile=size)
+    rt = RegionTemplate("Patient")
+    dom3 = BoundingBox((0, 0, 0), (3, size, n * size))
+    rgb = rt.new_region("RGB", dom3, np.float32, input_storage="DMS3", lazy=True)
+    env = SysEnv(num_workers=1, cpus_per_worker=3, accels_per_worker=1, max_active=4,
+                 registry=reg)
+    stages = []
+    try:
+        for j in range(n):
+            part3 = BoundingBox((0, 0, j * size), (3, size, (j + 1) * size))
+            part2 = BoundingBox((0, j * size), (size, (j + 1) * size))
+            reg.get("DMS3").put(rgb.key, part3, make_tile(size, num_nuclei=4, seed=j)[0])
+            seg = SegmentationStage(NODE_CFG, device="cpu")
+            seg.add_region_template(rt, "RGB", part3, Intent.INPUT, read_storage="DMS3")
+            seg.add_region_template(rt, "Mask", part2, Intent.OUTPUT, storage="DMS2")
+            seg.add_region_template(rt, "Hema", part2, Intent.OUTPUT, storage="DMS2")
+            feat = FeatureStage(NODE_CFG, device="cpu")
+            feat.add_region_template(rt, "Mask", part2, Intent.INPUT, read_storage="DMS2")
+            feat.add_region_template(rt, "Hema", part2, Intent.INPUT, read_storage="DMS2")
+            feat.add_dependency(seg)
+            env.execute_component(seg)
+            env.execute_component(feat)
+            stages.append((seg, feat))
+        env.startup_execution()
+    finally:
+        env.finalize_system()
+    return stages
+
+
+def test_an_image_records_each_stage_and_its_dispatch_with_its_tasks_under_it():
+    spans.reset()
+    with torch.profiler.profile(activities=CPU):
+        rt_image()
+    recs = spans.records()
+    spans.reset()
+    names = by_name(recs)
+    assert len(names["rt.stage.SegmentationStage"]) == 4
+    assert len(names["rt.stage.FeatureStage"]) == 4
+    assert len(names["rt.dispatch"]) == 8
+    stage_spans = names["rt.stage.SegmentationStage"] + names["rt.stage.FeatureStage"]
+    for d in names["rt.dispatch"]:
+        assert d.parent is None and d.start_ns <= d.end_ns
+    # each dispatch closes before its stage opens, on the stage's own thread
+    starts = sorted(s.start_ns for s in stage_spans)
+    ends = sorted(d.end_ns for d in names["rt.dispatch"])
+    assert all(e <= s for e, s in zip(ends, starts))
+    by_id = {r.id: r for r in recs}
+    for rois in names["wsi.extract_object_rois"]:  # on a WRM thread, under its stage
+        assert by_id[rois.parent].name == "rt.stage.FeatureStage"
+        assert rois.root == rois.parent
+    feats = names["rt.stage.FeatureStage"]
+    segs = names["rt.stage.SegmentationStage"]
+    assert min(f.start_ns for f in feats) >= min(s.end_ns for s in segs)
+
+
+def test_the_stores_record_get_and_put_with_the_assembly_inside_get():
+    spans.reset()
+    with torch.profiler.profile(activities=CPU):
+        rt_image(2)
+    recs = spans.records()
+    spans.reset()
+    names = by_name(recs)
+    by_id = {r.id: r for r in recs}
+    # per tile: the RGB, the mask and the hematoxylin put; the three read back
+    assert len(names["dms.put"]) == 6 and len(names["dms.get"]) == 6
+    assert len(names["dms.assemble"]) == 6
+    for a in names["dms.assemble"]:
+        outer = by_id[a.parent]
+        assert outer.name == "dms.get" and outer.start_ns <= a.start_ns <= a.end_ns <= outer.end_ns
+    for rec in names["dms.get"]:
+        assert by_id[rec.parent].name.startswith("rt.stage.")
+
+
+def test_without_a_profiler_the_runtime_and_stores_record_nothing():
+    spans.reset()
+    stages = rt_image(1)
+    assert spans.records() == []
+    assert all(s.ready_ns is None for pair in stages for s in pair)
+    spans.record("rt.dispatch", 0, 1)
+    assert spans.records() == [] and spans.current() is None
+    assert spans.within(None) is spans.span("x")
+
+
+def test_record_keeps_a_span_started_elsewhere_under_the_open_span():
+    spans.reset()
+    with torch.profiler.profile(activities=CPU):
+        t0 = time.time_ns()
+        with spans.span("outer"):
+            outer = spans.current()
+            spans.record("waited", t0, time.time_ns())
+        spans.record("alone", t0, t0 + 5)
+    recs = by_name(spans.records())
+    spans.reset()
+    (waited,), (alone,), (o,) = recs["waited"], recs["alone"], recs["outer"]
+    assert waited.parent == o.id == outer.id and waited.root == o.id
+    assert alone.parent is None and alone.end_ns - alone.start_ns == 5
+
+
+@pytest.mark.parametrize("metric", ["dispatch_ms.rt", "assemble_ms.rt", "store_copied_mb.rt"])
+def test_the_runtime_and_store_readers_read_none_on_a_run_that_recorded_nothing(metric):
+    from rtbench import harness
+
+    from repro_torch.storage import copies
+
+    spans.reset()
+    copies.reset_stats()
+    run = SimpleNamespace(tally=SimpleNamespace(completed=4),
+                          traffic={"warm_images": 1, "tiles_per_image": 4})
+    assert harness.load_reader(metric)(run) is None
