@@ -8,13 +8,23 @@ move.
 
 :class:`Spares` keeps the host buffers of arrays that were let go of for the
 next copies of the same size. A block of a 4096^2 tile is 67-201 MB: fresh
-from the allocator, its pages fault in as the copy first writes them (a
-201 MB copy took 80-92 ms into fresh pages and 23-26 ms into pages written
-before, on an H100 machine's host; a 67 MB download from the card 26-36 ms
-and 10-17 ms). An array in a spare buffer is read-only and nothing else can
-write its buffer, so a store keeps it without a copy (:func:`immutable`):
-:func:`download` brings a tensor to the host that way, as the
-region-template stages hand their outputs to the stores.
+from the allocator, its pages fault in as the copy first writes them. An
+array in a spare buffer is read-only and nothing else can write its buffer,
+so a store keeps it without a copy (:func:`immutable`): :func:`download`
+brings a tensor to the host that way, as the region-template stages hand
+their outputs to the stores.
+
+Where the process already holds a CUDA context, new spares are page-locked,
+from torch's caching host allocator (which rounds a block up to a power of
+two and takes it back into its cache, never freeing it to the driver while
+the process runs), and torch fills them: a host array by ``copy_`` on the
+intra-op threads, a tensor on a card by DMA at the copy engines' rate. A
+store block in such a spare is uploaded by DMA with no staging copy
+(``staging.upload``). A process that never opened a context, such as a
+socket storage server, pins nothing and keeps pageable spares. Through
+pageable spares, on an H100 machine's host: a 201 MB copy took 80-92 ms into
+fresh pages and 23-26 ms (``np.copyto``, one thread) into pages written
+before; a 67 MB download from the card 26-36 ms and 10-17 ms.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ import weakref
 
 import numpy as np
 import torch
+
+from repro_torch import staging
 
 _STATS = ("put_copies", "put_bytes", "get_copies", "get_bytes")
 _stats = dict.fromkeys(_STATS, 0)
@@ -51,13 +63,40 @@ class _Lease:
     """The read-only buffer of one block over a spare: numpy keeps it as the
     base of the block and of every view of it, so it dies with the last."""
 
-    __slots__ = ("raw", "__weakref__")
+    __slots__ = ("raw", "pinned", "__weakref__")
 
-    def __init__(self, raw: np.ndarray) -> None:
+    def __init__(self, raw: np.ndarray, pinned: bool) -> None:
         self.raw = raw
+        self.pinned = pinned
 
     def __buffer__(self, flags: int) -> memoryview:
         return memoryview(self.raw).toreadonly()
+
+
+def _pinning() -> bool:
+    """Whether new spares are page-locked: only where this process already
+    holds a CUDA context, so a store that never meets a card creates none."""
+    return torch.cuda.is_initialized()
+
+
+def _page_locked(nbytes: int) -> np.ndarray:
+    """``nbytes`` of page-locked memory from torch's caching host allocator,
+    as an array that keeps its block; when the array dies the block goes
+    back to torch's cache, not to the driver (whose free synchronises the
+    device)."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+
+
+def _host_copy(out: np.ndarray, src: np.ndarray) -> None:
+    """``np.copyto(out, src)``, by torch's ``copy_`` on its intra-op threads
+    where torch can view ``src`` (not a read-only array, of which it warns)."""
+    if src.flags.writeable:
+        try:
+            torch.from_numpy(out).copy_(torch.from_numpy(src))
+            return
+        except (TypeError, ValueError):  # a dtype or byte order torch has not
+            pass
+    np.copyto(out, src)
 
 
 class Spares:
@@ -69,12 +108,13 @@ class Spares:
     back when the last array over the copy dies, the store's block and every
     view handed out of it alike, so a buffer is never written while anything
     can read it. At most ``keep`` free buffers of one size are kept; the rest
-    go back to the allocator.
+    go back to the allocator. Once the process holds a CUDA context, new
+    buffers are page-locked, and a pageable one is dropped, not reused.
     """
 
     def __init__(self, keep: int = 2) -> None:
         self.keep = keep
-        self._free: dict[int, list[np.ndarray]] = {}
+        self._free: dict[int, list[tuple[np.ndarray, bool]]] = {}
         self._lock = threading.Lock()
 
     def copy(self, src) -> np.ndarray:
@@ -91,29 +131,34 @@ class Spares:
             dtype, shape, nbytes = src.dtype, src.shape, src.nbytes
             if not nbytes or dtype.hasobject:
                 return _read_only(np.array(src, copy=True))
+        pin = _pinning()
         with self._lock:
             free = self._free.get(nbytes)
-            raw = free.pop() if free else None
+            if free and pin:  # pageable spares from before the context
+                free[:] = [spare for spare in free if spare[1]]
+            raw, pinned = free.pop() if free else (None, pin)
         if raw is None:
-            raw = np.empty(nbytes, np.uint8)
+            raw = _page_locked(nbytes) if pin else np.empty(nbytes, np.uint8)
         out = raw.view(dtype).reshape(shape)
         if isinstance(src, torch.Tensor):
             torch.from_numpy(out).copy_(src.detach())
         else:
-            np.copyto(out, src)
-        lease = _Lease(raw)
+            _host_copy(out, src)
+        lease = _Lease(raw, pinned)
         try:
             block = np.frombuffer(lease, dtype=dtype)
         except TypeError:  # a Python before 3.12 exports no buffer from a class
             return _read_only(out)
-        weakref.finalize(lease, self._give_back, raw).atexit = False
+        weakref.finalize(lease, self._give_back, raw, pinned).atexit = False
         return block.reshape(shape)
 
-    def _give_back(self, raw: np.ndarray) -> None:
+    def _give_back(self, raw: np.ndarray, pinned: bool) -> None:
+        if not pinned and _pinning():
+            return  # dropped: page-locked spares take its place
         with self._lock:
             free = self._free.setdefault(raw.nbytes, [])
             if len(free) < self.keep:
-                free.append(raw)
+                free.append((raw, pinned))
 
 
 def _read_only(array: np.ndarray) -> np.ndarray:
@@ -127,13 +172,23 @@ _NUMPY = {t: np.dtype(n) for t, n in (
     (torch.int8, np.int8), (torch.uint8, np.uint8), (torch.bool, np.bool_))}
 
 
-def immutable(array) -> bool:
-    """Whether ``array`` lies in a spare buffer: read-only, and no array that
-    can write its buffer exists until every array over it is gone."""
+def _lease(array) -> _Lease | None:
     base = array
     while isinstance(base, np.ndarray):
         base = base.base
-    return isinstance(base, _Lease)
+    return base if isinstance(base, _Lease) else None
+
+
+def immutable(array) -> bool:
+    """Whether ``array`` lies in a spare buffer: read-only, and no array that
+    can write its buffer exists until every array over it is gone."""
+    return _lease(array) is not None
+
+
+def page_locked(array) -> bool:
+    """Whether ``array`` lies in a page-locked spare buffer."""
+    lease = _lease(array)
+    return lease is not None and lease.pinned
 
 
 _downloads = Spares(keep=8)  # an image of 4 tiles downloads 8 planes (mask, hematoxylin)
@@ -142,5 +197,11 @@ _downloads = Spares(keep=8)  # an image of 4 tiles downloads 8 planes (mask, hem
 def download(tensor: torch.Tensor) -> np.ndarray:
     """``tensor`` on the host, read-only, in a buffer that an earlier download
     of its size let go of where one is free: no fresh pages to fault in, and
-    a store keeps the result without copying it again (:func:`immutable`)."""
-    return _downloads.copy(tensor)
+    a store keeps the result without copying it again (:func:`immutable`).
+    From a card into a page-locked spare it moves by DMA;
+    ``staging.transfer_stats`` counts its bytes by the spare's kind."""
+    host = _downloads.copy(tensor)
+    if tensor.is_cuda:
+        kind = "download_pinned" if page_locked(host) else "download_pageable"
+        staging.count_transfer(kind, host.nbytes)
+    return host

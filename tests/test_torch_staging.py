@@ -211,3 +211,101 @@ def test_four_threads_upload_at_once_and_all_land(card, counts):
     assert counts()["staged_uploads"] == 12
     for i in range(4):
         assert torch.equal(got[i].cpu(), torch.from_numpy(xs[i]))
+
+
+# ---------------------------------------------------------------------------
+# Host-card transfers by their host buffer (``staging.transfer_stats``)
+# ---------------------------------------------------------------------------
+PINNED_READER = READER.parent / "pinned_host_share.rt.py"
+
+
+@pytest.fixture
+def transfers():
+    from repro_torch.storage import copies
+
+    staging.reset_transfer_stats()
+    staging.reset_stats()
+    copies.reset_stats()
+    yield staging.transfer_stats
+    staging.reset_transfer_stats()
+    staging.reset_stats()
+    copies.reset_stats()
+
+
+def pinned_reader():
+    spec = importlib.util.spec_from_file_location("pinned_host_share", PINNED_READER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("path", staging.TRANSFERS)
+def test_the_transfer_counter_counts_each_path_and_resets_apart(transfers, path):
+    from repro_torch.storage import copies
+
+    staging.count_transfer(path, 300)
+    staging.count_transfer(path, 12)
+    staging._count("staged", 7)
+    copies.count("put", 9)
+    want = dict.fromkeys(transfers(), 0)
+    want.update({path: 2, path + "_bytes": 312})
+    assert transfers() == want
+    staging.reset_stats()
+    copies.reset_stats()
+    assert transfers() == want  # the other counters' resets leave it alone
+    staging._count("staged", 7)
+    copies.count("put", 9)
+    staging.reset_transfer_stats()
+    assert set(transfers().values()) == {0}
+    assert staging.stats()["staged_bytes"] == 7 and copies.stats()["put_bytes"] == 9
+
+
+def test_host_to_host_moves_are_no_transfers(transfers):
+    """Uploads for the CPU and downloads of CPU tensors cross no bus."""
+    from repro_torch.storage import copies
+
+    wsi._upload(np.ones(64, np.float32), CPU)
+    host = copies.download(torch.arange(64.0))
+    assert not copies.page_locked(host)
+    assert set(transfers().values()) == {0}
+
+
+def test_the_benchmark_reads_the_pinned_share_and_clears_it(transfers):
+    read = pinned_reader()
+    assert read(None) is None  # nothing moved
+    staging.count_transfer("upload_pinned", 200)
+    staging.count_transfer("download_pinned", 100)
+    staging.count_transfer("upload_staged", 50)
+    staging.count_transfer("upload_direct", 25)
+    staging.count_transfer("download_pageable", 25)
+    staging._count("staged", 1000)  # another reader's counter: not in the share
+    assert read(None) == pytest.approx(75.0)
+    assert read(None) is None  # the first read took the counts
+    assert staging.stats()["staged_bytes"] == 1000
+    staging.count_transfer("download_pageable", 5)
+    assert read(None) == 0.0
+
+
+@pytest.mark.parametrize("gone", ["module", "counter"])
+def test_a_program_without_the_transfer_counter_reads_none(transfers, monkeypatch, gone):
+    staging.count_transfer("upload_pinned", 300)
+    if gone == "module":
+        monkeypatch.delattr(repro_torch, "staging")
+        monkeypatch.setitem(sys.modules, "repro_torch.staging", None)  # the import fails
+    else:
+        monkeypatch.delattr(staging, "transfer_stats")
+    assert pinned_reader()(None) is None
+    monkeypatch.undo()
+    assert staging.transfer_stats()["upload_pinned_bytes"] == 300  # left alone
+
+
+@pytest.mark.cuda
+def test_a_pageable_source_is_staged_and_a_pinned_one_is_not(card, transfers):
+    x = np.random.default_rng(9).standard_normal((3, 2048, 2048), np.float32)
+    pinned = torch.from_numpy(x).pin_memory()
+    got = [staging.upload(x, card), staging.upload(pinned, card)]
+    counts = transfers()
+    assert counts["upload_staged"] == 1 and counts["upload_pinned"] == 1
+    assert counts["upload_pinned_bytes"] == counts["upload_staged_bytes"] == x.nbytes
+    want = torch.as_tensor(x, device=card)
+    assert all(torch.equal(bits(g), bits(want)) for g in got)

@@ -144,3 +144,183 @@ def test_a_download_is_stored_without_a_copy_and_stays_read_only(dms):
     got = dms.get(_key(), ONE_BLOCK)
     assert np.shares_memory(got, host) and not got.flags.writeable
     assert not copies.immutable(np.array(host)) and not copies.immutable(t.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Page-locked spares: only where the process holds a CUDA context
+# ---------------------------------------------------------------------------
+NO_CONTEXT = r"""
+import numpy as np, torch
+from repro_torch.core import BoundingBox, ElementType, RegionKey
+from repro_torch.storage import DistributedMemoryStorage, copies
+dom = BoundingBox((0, 0), (64, 128))
+dms = DistributedMemoryStorage(dom, (32, 128), 2)
+key = RegionKey("t", "X", ElementType.FLOAT32, 0, 0)
+locked = []
+for seed in range(4):  # buffers come back and are reused
+    dms.put(key, dom, np.random.default_rng(seed).random(dom.shape, dtype=np.float32))
+    one = dms.get(key, BoundingBox((0, 0), (32, 128)))
+    host = copies.download(torch.from_numpy(np.array(one)))
+    locked += [copies.page_locked(one), copies.page_locked(host), copies.immutable(one)]
+print(torch.cuda.is_initialized(), locked.count(True), len(locked))
+"""
+
+
+def test_without_a_cuda_context_puts_gets_and_downloads_pin_nothing():
+    """In a fresh process, as a socket storage server's: the store opens no
+    context, and every spare is pageable (each block still a spare's)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([src, os.environ.get("PYTHONPATH", "")])}
+    done = subprocess.run([sys.executable, "-c", NO_CONTEXT], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert done.returncode == 0, done.stderr
+    assert done.stdout.split() == ["False", "4", "12"]  # the 4 are immutable(), not pinned
+
+
+@pytest.fixture
+def pinning(monkeypatch):
+    """Pinning switched on by hand, page-locked buffers stood in for by plain ones."""
+    state = {"on": False}
+    monkeypatch.setattr(copies, "_pinning", lambda: state["on"])
+    monkeypatch.setattr(copies, "_page_locked", lambda n: np.empty(n, np.uint8))
+    return state
+
+
+@pytest.mark.parametrize("freed", ["before", "after"])
+def test_a_pageable_spare_is_not_reused_once_pinning_is_on(pinning, freed):
+    """A pageable spare freed before the context came up is dropped when
+    the next copy looks for one; one that comes back after is never kept."""
+    spares = copies.Spares(keep=2)
+    a = np.arange(4096, dtype=np.float32).reshape(64, 64)
+    first = spares.copy(a)
+    raw = copies._lease(first).raw
+    assert not copies.page_locked(first)
+    if freed == "before":
+        del first
+        assert [r for r, _ in spares._free[a.nbytes]] == [raw]
+    pinning["on"] = True
+    if freed == "after":
+        del first
+        assert not spares._free.get(a.nbytes)
+    second = spares.copy(a + 1)
+    assert copies.page_locked(second) and copies._lease(second).raw is not raw
+    np.testing.assert_array_equal(second, a + 1)
+    assert not spares._free.get(a.nbytes)
+    del second  # a page-locked spare comes back and is reused
+    third = spares.copy(a + 2)
+    assert copies.page_locked(third) and not third.flags.writeable
+
+
+@pytest.mark.parametrize("make", [
+    lambda: np.arange(24, dtype=np.int16).reshape(4, 6),
+    lambda: np.arange(48, dtype=np.float64).reshape(6, 8)[:, ::2],  # strided: torch copies it
+    lambda: np.arange(48, dtype=np.float64).reshape(6, 8)[::-1],  # torch cannot view it
+    lambda: np.arange(8, dtype=">f4"),  # nor this byte order
+    lambda: np.zeros(5, np.longdouble) + 1.5,  # nor this dtype
+    lambda: np.array([True, False, True]),
+], ids=["int16", "strided", "reversed", "byteswapped", "longdouble", "bool"])
+def test_a_put_copy_is_the_source_bit_for_bit(pinning, make):
+    """A copy by torch where it can view the source, by numpy where not."""
+    src = make()
+    ro = src.copy()
+    ro.setflags(write=False)  # a read-only source goes by numpy
+    for s in (src, ro):
+        got = copies.Spares().copy(s)
+        assert got.dtype == s.dtype and got.shape == s.shape and not got.flags.writeable
+        assert got.tobytes() == s.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.cuda.init()
+    from repro_torch import staging
+
+    staging.reset_transfer_stats()
+    yield torch.device("cuda")
+    staging.reset_transfer_stats()
+
+
+@pytest.mark.cuda
+def test_a_put_lands_in_a_page_locked_buffer(card, dms):
+    from repro_torch import staging
+
+    a = _data(50)
+    dms.put(_key(), DOM, a)
+    got = dms.get(_key(), ONE_BLOCK)
+    assert copies.page_locked(got) and staging._host_tensor(got).is_pinned()
+    np.testing.assert_array_equal(got, a[ONE_BLOCK.slices()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, cast", [(np.float32, None), (np.int32, None),
+                                         (np.uint8, "float32")])
+def test_uploading_a_store_block_takes_no_staging_copy(card, dtype, cast):
+    import torch
+
+    from repro_torch import staging
+
+    dom = BoundingBox((0, 0, 0), (3, 1024, 1024))
+    dms = DistributedMemoryStorage(dom, (3, 1024, 1024), 1)
+    a = np.random.default_rng(51).integers(0, 256, dom.shape).astype(dtype)
+    dms.put(_key(), dom, a)
+    block = dms.get(_key(), dom)  # one block: the spare itself
+    cast = getattr(torch, cast) if cast else None
+    got = staging.upload(block, card, cast)
+    counts = staging.transfer_stats()
+    assert counts["upload_pinned"] == 1 and counts["upload_pinned_bytes"] == a.nbytes
+    assert counts["upload_staged"] == 0 and counts["upload_direct"] == 0
+    want = torch.as_tensor(a, dtype=cast, device=card)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bool"])
+def test_a_download_into_a_pinned_spare_equals_cpu(card, dtype):
+    import torch
+
+    from repro_torch import staging
+
+    t = torch.randn(2048, 1024, device=card) > 0 if dtype == "bool" else \
+        (torch.randn(2048, 1024, device=card) * 1e4).to(getattr(torch, dtype))
+    host = copies.download(t)
+    assert copies.page_locked(host) and not host.flags.writeable
+    assert host.tobytes() == t.cpu().numpy().tobytes()
+    counts = staging.transfer_stats()
+    assert counts["download_pinned"] == 1 and counts["download_pinned_bytes"] == host.nbytes
+    assert counts["download_pageable"] == 0
+
+
+@pytest.mark.cuda
+def test_no_spare_is_freed_to_the_driver_while_the_store_lives(card):
+    """Blocks die and come back, more than the spares keep: the buffers let
+    go of return to torch's host cache, whose blocks are never given back to
+    the driver (a free there synchronises the device)."""
+    import torch
+
+    dom = BoundingBox((0, 0), (2048, 2048))
+    dms = DistributedMemoryStorage(dom, (1024, 2048), 2)
+    t = torch.rand(2048, 2048, device=card)
+    held = []
+    for i in range(12):
+        dms.put(_key(), dom, np.full(dom.shape, i, np.float32))
+        held.append(copies.download(t))
+        if i == 3:
+            before = torch.cuda.host_memory_stats()
+        if i % 3 == 2:
+            held.clear()  # more buffers back at once than a spare list keeps
+    after = torch.cuda.host_memory_stats()
+    assert "num_host_free" in after
+    assert after["num_host_free"] == before["num_host_free"]
+    np.testing.assert_array_equal(dms.get(_key(), dom), np.full(dom.shape, 11, np.float32))
