@@ -15,11 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.wsi import WSIConfig
-from repro_torch.core.regions import host_tensor
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import build
 from repro_torch.models.transformer import shard_params
+from repro_torch.staging import host_tensor
 
 
 def from_reference(

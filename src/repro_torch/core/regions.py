@@ -25,11 +25,12 @@ from __future__ import annotations
 import dataclasses
 import enum
 import threading
-from typing import Any, Callable, Iterable, Protocol, runtime_checkable
+from typing import Any, Iterable, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from repro_torch import staging
 from repro_torch.core.bbox import BoundingBox
 from repro_torch.device import resolve_device
 
@@ -250,8 +251,6 @@ class DataRegion:
         self._location = "none" if data is None else _infer_location(data)
         self._lock = threading.RLock()
         self._event: torch.cuda.Event | None = None  # marks the end of an upload
-        # async transfer bookkeeping (paper: non-blocking upload/download)
-        self._pending: list[Callable[[], None]] = []
         self.stats = {"reads": 0, "writes": 0, "bytes_read": 0, "bytes_written": 0}
 
     # -- payload state --------------------------------------------------------
@@ -317,25 +316,17 @@ class DataRegion:
         """Upload the payload to ``device`` (``None``: the CUDA card; see
         ``repro_torch.device.resolve_device``) and return it as a tensor.
 
-        A host numpy array bound for the card is copied from pinned memory
-        without blocking the host; a CUDA event recorded after the copy is
-        what :meth:`ready` queries and :meth:`block_until_ready` waits on.
+        A contiguous host array bound for the card goes by DMA without
+        blocking the host (``staging.to_device``: from its own memory where
+        that is page-locked, such as a store's block, else through pinned
+        memory); the CUDA event recorded after the copy is what :meth:`ready`
+        queries and :meth:`block_until_ready` waits on.
         """
         dev = resolve_device(device)
         with self._lock:
             if self._data is None:
                 raise RuntimeError(f"{self.key}: not materialized")
-            data = self._data
-            src = host_tensor(data) if isinstance(data, np.ndarray) else torch.as_tensor(data)
-            event = None
-            if dev.type == "cuda":
-                if not src.is_cuda:
-                    src = src.pin_memory()
-                arr = src.to(dev, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
-            else:
-                arr = src.to(dev)
+            arr, event = staging.to_device(self._data, dev)
             self._data = arr
             self._event = event
             self._location = "device"
@@ -401,15 +392,6 @@ class DataRegion:
 
 def _infer_location(data: Any) -> str:
     return "device" if isinstance(data, torch.Tensor) else "host"
-
-
-def host_tensor(arr: np.ndarray) -> torch.Tensor:
-    """A host numpy array -> a CPU tensor (bfloat16 from ``ml_dtypes`` goes
-    through its bits). It shares ``arr``'s memory where ``arr`` is writable
-    and contiguous, else holds a copy."""
-    bits = arr.view(np.uint16) if arr.dtype.name == "bfloat16" else arr
-    out = torch.from_numpy(np.require(bits, requirements=["C", "W"]))
-    return out.view(torch.bfloat16) if bits is not arr else out
 
 
 class ObjectSetRegion(DataRegion):

@@ -39,7 +39,8 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.regions import host_tensor, to_numpy
+from repro_torch import staging
+from repro_torch.core.regions import to_numpy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
@@ -294,7 +295,7 @@ class Chain:
         dev = resolve_device(device)
         arr = np.asarray(x)
         self.check_input_rank(arr.ndim)
-        out = to_numpy(self.device_fn(impl)(host_tensor(arr).to(dev)))
+        out = to_numpy(self.device_fn(impl)(staging.upload(arr, dev)))
         hfn = self.host_fn()
         return hfn(out) if hfn is not None else out
 

@@ -5,14 +5,14 @@ download* — so the upload of task N+1 and the download of task N-1 overlap
 the compute of task N.  On the CUDA card this module realises them with
 streams and events:
 
-  * uploads run on a copy stream, from pinned host buffers, and record an
-    event;
+  * uploads run on a copy stream, by DMA from page-locked host memory
+    (``staging.to_device``), and record an event;
   * ``fn`` runs on the caller's current stream after waiting on that event,
     so the hand-written kernels (which launch on the current stream) run
     there;
-  * downloads run on a second copy stream into pinned host buffers, after
-    waiting on the compute, and an event on that stream is synchronised
-    before the numpy result is handed out.
+  * downloads run on a second copy stream into fresh pinned host buffers
+    (``staging.to_host``), after waiting on the compute, and an event on
+    that stream is synchronised before the numpy result is handed out.
 
 A tensor allocated on one stream and used on another is marked with
 ``record_stream``, so the caching allocator does not hand its memory to a
@@ -37,7 +37,8 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.regions import host_tensor, to_numpy
+from repro_torch import staging
+from repro_torch.core.regions import to_numpy
 from repro_torch.device import resolve_device
 
 
@@ -59,22 +60,8 @@ def _tree_leaves(tree: Any) -> list:
 def _upload(batch: Any, dev: torch.device, stream) -> tuple[Any, Any]:
     """Host batch -> (the same tree as tensors on ``dev``, the event that
     marks the end of the copies, or ``None`` on the CPU)."""
-
-    def put(x: Any) -> torch.Tensor:
-        src = host_tensor(x) if isinstance(x, np.ndarray) else torch.as_tensor(x)
-        if stream is None:
-            return src.to(dev)
-        if not src.is_cuda:
-            src = src.pin_memory()
-        return src.to(dev, non_blocking=True)
-
-    if stream is None:
-        return _tree_map(put, batch), None
-    with torch.cuda.stream(stream):
-        out = _tree_map(put, batch)
-        event = torch.cuda.Event()
-        event.record(stream)
-    return out, event
+    out = _tree_map(lambda x: staging.to_device(x, dev, stream=stream)[0], batch)
+    return out, (stream.record_event() if stream is not None else None)
 
 
 def _consume_on(tree: Any, event, stream) -> None:
@@ -207,23 +194,12 @@ class DevicePipeline:
         compute = torch.cuda.current_stream(self.device)
         _consume_on(dev_batch, uploaded, compute)
         out = self.fn(dev_batch)
-        computed = torch.cuda.Event()
-        computed.record(compute)
+        computed = compute.record_event()
         down = self._download_stream
-
-        def fetch(x: Any) -> Any:
-            if not (isinstance(x, torch.Tensor) and x.is_cuda):
-                return x
-            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            host.copy_(x, non_blocking=True)
-            return host
-
-        with torch.cuda.stream(down):
-            _consume_on(out, computed, down)
-            host = _tree_map(fetch, out)
-            fetched = torch.cuda.Event()
-            fetched.record(down)
-        return host, fetched
+        _consume_on(out, computed, down)
+        host = _tree_map(lambda x: staging.to_host(x, stream=down)
+                         if isinstance(x, torch.Tensor) and x.is_cuda else x, out)
+        return host, down.record_event()
 
     def _download(self, pending: tuple[Any, Any]) -> Any:
         out, fetched = pending

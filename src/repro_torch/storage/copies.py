@@ -14,13 +14,14 @@ so a store keeps it without a copy (:func:`immutable`): :func:`download`
 brings a tensor to the host that way, as the region-template stages hand
 their outputs to the stores.
 
-Where the process already holds a CUDA context, new spares are page-locked,
-from torch's caching host allocator (which rounds a block up to a power of
-two and takes it back into its cache, never freeing it to the driver while
-the process runs), and torch fills them: a host array by ``copy_`` on the
-intra-op threads, a tensor on a card by DMA at the copy engines' rate. A
-store block in such a spare is uploaded by DMA with no staging copy
-(``staging.upload``). A process that never opened a context, such as a
+New spares come from ``staging.host_buffer``: page-locked where the process
+already holds a CUDA context, from torch's caching host allocator (which
+rounds a block up to a power of two and takes it back into its cache, never
+freeing it to the driver while the process runs). Torch fills them: a host
+array by ``copy_`` on the intra-op threads, a tensor on a card by DMA at the
+copy engines' rate (``staging.to_host``). A store block in such a spare is
+uploaded by DMA with no staging copy (``staging.upload``,
+``staging.to_device``). A process that never opened a context, such as a
 socket storage server, pins nothing and keeps pageable spares. Through
 pageable spares, on an H100 machine's host: a 201 MB copy took 80-92 ms into
 fresh pages and 23-26 ms (``np.copyto``, one thread) into pages written
@@ -63,28 +64,13 @@ class _Lease:
     """The read-only buffer of one block over a spare: numpy keeps it as the
     base of the block and of every view of it, so it dies with the last."""
 
-    __slots__ = ("raw", "pinned", "__weakref__")
+    __slots__ = ("raw", "__weakref__")
 
-    def __init__(self, raw: np.ndarray, pinned: bool) -> None:
+    def __init__(self, raw: np.ndarray) -> None:
         self.raw = raw
-        self.pinned = pinned
 
     def __buffer__(self, flags: int) -> memoryview:
         return memoryview(self.raw).toreadonly()
-
-
-def _pinning() -> bool:
-    """Whether new spares are page-locked: only where this process already
-    holds a CUDA context, so a store that never meets a card creates none."""
-    return torch.cuda.is_initialized()
-
-
-def _page_locked(nbytes: int) -> np.ndarray:
-    """``nbytes`` of page-locked memory from torch's caching host allocator,
-    as an array that keeps its block; when the array dies the block goes
-    back to torch's cache, not to the driver (whose free synchronises the
-    device)."""
-    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
 
 
 def _host_copy(out: np.ndarray, src: np.ndarray) -> None:
@@ -131,29 +117,26 @@ class Spares:
             dtype, shape, nbytes = src.dtype, src.shape, src.nbytes
             if not nbytes or dtype.hasobject:
                 return _read_only(np.array(src, copy=True))
-        pin = _pinning()
+        pin = staging.pinning()
         with self._lock:
             free = self._free.get(nbytes)
             if free and pin:  # pageable spares from before the context
                 free[:] = [spare for spare in free if spare[1]]
             raw, pinned = free.pop() if free else (None, pin)
         if raw is None:
-            raw = _page_locked(nbytes) if pin else np.empty(nbytes, np.uint8)
+            raw = staging.host_buffer(nbytes)  # page-locked where ``pin``
         out = raw.view(dtype).reshape(shape)
         if isinstance(src, torch.Tensor):
-            torch.from_numpy(out).copy_(src.detach())
+            staging.to_host(src.detach(), torch.from_numpy(out))
         else:
             _host_copy(out, src)
-        lease = _Lease(raw, pinned)
-        try:
-            block = np.frombuffer(lease, dtype=dtype)
-        except TypeError:  # a Python before 3.12 exports no buffer from a class
-            return _read_only(out)
+        lease = _Lease(raw)
+        block = np.frombuffer(lease, dtype=dtype)
         weakref.finalize(lease, self._give_back, raw, pinned).atexit = False
         return block.reshape(shape)
 
     def _give_back(self, raw: np.ndarray, pinned: bool) -> None:
-        if not pinned and _pinning():
+        if not pinned and staging.pinning():
             return  # dropped: page-locked spares take its place
         with self._lock:
             free = self._free.setdefault(raw.nbytes, [])
@@ -185,12 +168,6 @@ def immutable(array) -> bool:
     return _lease(array) is not None
 
 
-def page_locked(array) -> bool:
-    """Whether ``array`` lies in a page-locked spare buffer."""
-    lease = _lease(array)
-    return lease is not None and lease.pinned
-
-
 _downloads = Spares(keep=8)  # an image of 4 tiles downloads 8 planes (mask, hematoxylin)
 
 
@@ -198,10 +175,6 @@ def download(tensor: torch.Tensor) -> np.ndarray:
     """``tensor`` on the host, read-only, in a buffer that an earlier download
     of its size let go of where one is free: no fresh pages to fault in, and
     a store keeps the result without copying it again (:func:`immutable`).
-    From a card into a page-locked spare it moves by DMA;
-    ``staging.transfer_stats`` counts its bytes by the spare's kind."""
-    host = _downloads.copy(tensor)
-    if tensor.is_cuda:
-        kind = "download_pinned" if page_locked(host) else "download_pageable"
-        staging.count_transfer(kind, host.nbytes)
-    return host
+    From a card into a page-locked spare it moves by DMA (``staging.to_host``,
+    which counts its bytes by the spare's kind)."""
+    return _downloads.copy(tensor)

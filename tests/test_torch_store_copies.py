@@ -7,6 +7,7 @@ later put writes into); overwriting a key keeps every other key's data; and
 import numpy as np
 import pytest
 
+from repro_torch import staging
 from repro_torch.core import BoundingBox, ElementType, RegionKey
 from repro_torch.storage import DistributedMemoryStorage, InProcTransport, copies
 
@@ -151,6 +152,7 @@ def test_a_download_is_stored_without_a_copy_and_stays_read_only(dms):
 # ---------------------------------------------------------------------------
 NO_CONTEXT = r"""
 import numpy as np, torch
+from repro_torch import staging
 from repro_torch.core import BoundingBox, ElementType, RegionKey
 from repro_torch.storage import DistributedMemoryStorage, copies
 dom = BoundingBox((0, 0), (64, 128))
@@ -161,7 +163,7 @@ for seed in range(4):  # buffers come back and are reused
     dms.put(key, dom, np.random.default_rng(seed).random(dom.shape, dtype=np.float32))
     one = dms.get(key, BoundingBox((0, 0), (32, 128)))
     host = copies.download(torch.from_numpy(np.array(one)))
-    locked += [copies.page_locked(one), copies.page_locked(host), copies.immutable(one)]
+    locked += [staging.page_locked(one), staging.page_locked(host), copies.immutable(one)]
 print(torch.cuda.is_initialized(), locked.count(True), len(locked))
 """
 
@@ -184,10 +186,20 @@ def test_without_a_cuda_context_puts_gets_and_downloads_pin_nothing():
 
 @pytest.fixture
 def pinning(monkeypatch):
-    """Pinning switched on by hand, page-locked buffers stood in for by plain ones."""
+    """Pinning switched on by hand, page-locked buffers stood in for by plain
+    ones, which ``staging.page_locked`` knows by their address."""
     state = {"on": False}
-    monkeypatch.setattr(copies, "_pinning", lambda: state["on"])
-    monkeypatch.setattr(copies, "_page_locked", lambda n: np.empty(n, np.uint8))
+    locked = set()
+
+    def host_buffer(nbytes):
+        raw = np.empty(nbytes, np.uint8)
+        if state["on"]:
+            locked.add(raw.ctypes.data)
+        return raw
+
+    monkeypatch.setattr(staging, "pinning", lambda: state["on"])
+    monkeypatch.setattr(staging, "host_buffer", host_buffer)
+    monkeypatch.setattr(staging, "page_locked", lambda a: np.asarray(a).ctypes.data in locked)
     return state
 
 
@@ -199,7 +211,7 @@ def test_a_pageable_spare_is_not_reused_once_pinning_is_on(pinning, freed):
     a = np.arange(4096, dtype=np.float32).reshape(64, 64)
     first = spares.copy(a)
     raw = copies._lease(first).raw
-    assert not copies.page_locked(first)
+    assert not staging.page_locked(first)
     if freed == "before":
         del first
         assert [r for r, _ in spares._free[a.nbytes]] == [raw]
@@ -208,12 +220,12 @@ def test_a_pageable_spare_is_not_reused_once_pinning_is_on(pinning, freed):
         del first
         assert not spares._free.get(a.nbytes)
     second = spares.copy(a + 1)
-    assert copies.page_locked(second) and copies._lease(second).raw is not raw
+    assert staging.page_locked(second) and copies._lease(second).raw is not raw
     np.testing.assert_array_equal(second, a + 1)
     assert not spares._free.get(a.nbytes)
     del second  # a page-locked spare comes back and is reused
     third = spares.copy(a + 2)
-    assert copies.page_locked(third) and not third.flags.writeable
+    assert staging.page_locked(third) and not third.flags.writeable
 
 
 @pytest.mark.parametrize("make", [
@@ -259,7 +271,7 @@ def test_a_put_lands_in_a_page_locked_buffer(card, dms):
     a = _data(50)
     dms.put(_key(), DOM, a)
     got = dms.get(_key(), ONE_BLOCK)
-    assert copies.page_locked(got) and staging._host_tensor(got).is_pinned()
+    assert staging.page_locked(got) and staging._host_view(got).is_pinned()
     np.testing.assert_array_equal(got, a[ONE_BLOCK.slices()])
 
 
@@ -295,7 +307,7 @@ def test_a_download_into_a_pinned_spare_equals_cpu(card, dtype):
     t = torch.randn(2048, 1024, device=card) > 0 if dtype == "bool" else \
         (torch.randn(2048, 1024, device=card) * 1e4).to(getattr(torch, dtype))
     host = copies.download(t)
-    assert copies.page_locked(host) and not host.flags.writeable
+    assert staging.page_locked(host) and not host.flags.writeable
     assert host.tobytes() == t.cpu().numpy().tobytes()
     counts = staging.transfer_stats()
     assert counts["download_pinned"] == 1 and counts["download_pinned_bytes"] == host.nbytes
