@@ -4,7 +4,8 @@ A store copies on ``put`` (a block kept apart from the caller's array) and
 on ``get`` (a read assembled from its blocks). :func:`stats` counts both
 since the last :func:`reset_stats`, as ``repro_torch.staging.stats`` counts
 the uploads: the bytes an operator can weigh against what the data had to
-move.
+move. Beside them, ``get_views`` counts the gets that one block answered
+with its read-only view, which copy nothing.
 
 :class:`Spares` keeps the host buffers of arrays that were let go of for the
 next copies of the same size. A block of a 4096^2 tile is 67-201 MB: fresh
@@ -37,7 +38,7 @@ import torch
 
 from repro_torch import staging
 
-_STATS = ("put_copies", "put_bytes", "get_copies", "get_bytes")
+_STATS = ("put_copies", "put_bytes", "get_copies", "get_bytes", "get_views")
 _stats = dict.fromkeys(_STATS, 0)
 _stats_lock = threading.Lock()
 
@@ -49,8 +50,14 @@ def count(kind: str, nbytes: int) -> None:
         _stats[kind + "_bytes"] += int(nbytes)
 
 
+def count_view() -> None:
+    """One get answered by a block's read-only view: no copy."""
+    with _stats_lock:
+        _stats["get_views"] += 1
+
+
 def stats() -> dict[str, int]:
-    """Copies and bytes since the last :func:`reset_stats`."""
+    """Copies, bytes and views since the last :func:`reset_stats`."""
     with _stats_lock:
         return dict(_stats)
 

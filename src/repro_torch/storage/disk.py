@@ -416,10 +416,8 @@ class DiskStorage:
         out, covered = _assemble(pieces, roi)
         if out is None:
             raise KeyError(f"DISK: {key} has no chunks intersecting {roi}")
-        if not covered.all():
-            raise KeyError(
-                f"DISK: {key} covers only {int(covered.sum())}/{roi.volume} of {roi}"
-            )
+        if covered < roi.volume:
+            raise KeyError(f"DISK: {key} covers only {covered}/{roi.volume} of {roi}")
         return out
 
     def query(self, namespace: str, name: str) -> list[tuple[RegionKey, BoundingBox]]:

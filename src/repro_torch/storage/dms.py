@@ -1374,7 +1374,7 @@ class DistributedMemoryStorage:
         ]
         pieces = self._fetch_blocks(key, blocks)
         out, covered = self._assemble(pieces, roi)
-        if (out is None or not covered.all()) and self.replication > 1:
+        if self.replication > 1 and (out is None or covered < roi.volume):
             # the answering directory may have been a rejoined server's
             # partial one (it received only post-rejoin broadcasts):
             # before failing, corroborate with a two-directory union —
@@ -1400,10 +1400,8 @@ class DistributedMemoryStorage:
                 out, covered = self._assemble(pieces, roi)
         if out is None:
             raise KeyError(f"DMS: {key} has no blocks intersecting {roi}")
-        if not covered.all():
-            raise KeyError(
-                f"DMS: {key} covers only {int(covered.sum())}/{roi.volume} cells of {roi}"
-            )
+        if covered < roi.volume:
+            raise KeyError(f"DMS: {key} covers only {covered}/{roi.volume} cells of {roi}")
         return out
 
     def query(self, namespace: str, name: str) -> list[tuple[RegionKey, BoundingBox]]:

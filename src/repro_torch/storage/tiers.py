@@ -61,36 +61,38 @@ def _assemble(
     roi: BoundingBox,
     *,
     share: bool = False,
-) -> tuple[np.ndarray | None, "np.ndarray | None"]:
+) -> tuple[np.ndarray | None, int]:
     """Overlay (bb, array) pieces (each array spanning its bb) onto an
-    ROI-shaped output.  Later pieces win on overlap — coverage is a
-    boolean mask, so overlapping pieces are never double-counted.
-    Returns (out, covered); out is None when nothing intersects.
+    ROI-shaped output.  Later pieces win on overlap.  Returns (out,
+    covered): out is None when nothing intersects; covered counts the ROI
+    cells that some piece holds, a boolean mask's count, so overlapping
+    pieces are never double-counted.  A read is whole when covered equals
+    ``roi.volume``.
 
     With ``share`` (pieces that are read-only and never written in place)
-    a ROI that one piece covers, contiguously, is that piece's view, with
-    no copy and a read-only ``covered``.  Every copy counts in
-    ``copies.stats()`` as a get.
+    a ROI that one piece contains, contiguously, is that piece's view,
+    with no copy and no mask: it is covered by its box, so covered is
+    ``roi.volume``.  Every copy counts in ``copies.stats()`` as a get,
+    every view as a ``get_views``.
     """
     pieces = [(bb, arr) for bb, arr in pieces if not bb.intersect(roi).is_empty]
     if share and len(pieces) == 1 and pieces[0][0].contains(roi):
         bb, arr = pieces[0]
         view = arr[roi.local_slices(bb)]
         if view.flags.c_contiguous and not view.flags.writeable:
-            return view, np.broadcast_to(np.True_, roi.shape)
-    out = None
-    covered = None
+            copies.count_view()
+            return view, roi.volume
+    if not pieces:
+        return None, 0
+    bb, arr = pieces[0]
+    out = np.zeros(roi.shape + arr.shape[bb.rank:], dtype=arr.dtype)
+    covered = np.zeros(roi.shape, dtype=bool)
     for bb, arr in pieces:
         part = bb.intersect(roi)
-        if out is None:
-            trailing = arr.shape[bb.rank:]
-            out = np.zeros(roi.shape + trailing, dtype=arr.dtype)
-            covered = np.zeros(roi.shape, dtype=bool)
         out[part.local_slices(roi)] = arr[part.local_slices(bb)]
         covered[part.local_slices(roi)] = True
-    if out is not None:
-        copies.count("get", out.nbytes)
-    return out, covered
+    copies.count("get", out.nbytes)
+    return out, int(np.count_nonzero(covered))
 
 
 @dataclasses.dataclass
@@ -153,11 +155,8 @@ class MemoryTier:
         out, covered = _assemble(chunks, roi)
         if out is None:
             raise KeyError(f"{self.name}: {key} has no chunks intersecting {roi}")
-        if not covered.all():
-            raise KeyError(
-                f"{self.name}: {key} covers only "
-                f"{int(covered.sum())}/{roi.volume} of {roi}"
-            )
+        if covered < roi.volume:
+            raise KeyError(f"{self.name}: {key} covers only {covered}/{roi.volume} of {roi}")
         return out
 
     def query(self, namespace: str, name: str) -> list[tuple[RegionKey, BoundingBox]]:
@@ -437,7 +436,7 @@ class TieredStore:
                     continue  # this tier's coverage of part is partial
                 fastest = i if fastest is None else min(fastest, i)
         out, covered = _assemble(pieces, roi)
-        if out is None or not covered.all():
+        if out is None or covered < roi.volume:
             return None, None
         return out, fastest
 

@@ -86,14 +86,14 @@ def test_the_copy_counter_counts_what_moved(dms):
     a = _data(20)
     dms.put(_key(), DOM, a)  # two contiguous blocks: the store's copy of each
     assert copies.stats() == {"put_copies": 2, "put_bytes": a.nbytes,
-                              "get_copies": 0, "get_bytes": 0}
+                              "get_copies": 0, "get_bytes": 0, "get_views": 0}
     copies.reset_stats()
     dms.get(_key(), ONE_BLOCK)  # one block: its view, no copy
-    assert copies.stats()["get_copies"] == 0
+    assert copies.stats()["get_copies"] == 0 and copies.stats()["get_views"] == 1
     roi = BoundingBox((8, 4), (40, 100))
     dms.get(_key(), roi)  # across blocks: one assembled array
     assert copies.stats() == {"put_copies": 0, "put_bytes": 0,
-                              "get_copies": 1, "get_bytes": roi.volume * 4}
+                              "get_copies": 1, "get_bytes": roi.volume * 4, "get_views": 1}
     copies.reset_stats()
     t = np.ascontiguousarray(a.T)  # a transposed view, cut into blocks: one copy to
     dms.put(_key("Z"), DOM, t.T)  # make each block contiguous, one to store it
