@@ -42,6 +42,7 @@ import uuid
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core.bbox import BoundingBox
 from repro_torch.core.regions import ElementType, RegionKey
 
@@ -396,6 +397,14 @@ class DiskStorage:
 
     # -- read path ---------------------------------------------------------------------
     def get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
+        """The ROI assembled from the chunks' files. Each chunk is read into
+        bytes of its own, never written, so a ROI that one chunk holds is
+        that chunk's read-only view. While a profiler records, the read is
+        the span ``disk.get`` (``repro_torch.spans``)."""
+        with spans.span("disk.get"):
+            return self._get(key, roi)
+
+    def _get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
         from repro_torch.storage.tiers import _assemble
 
         with self._lock:
@@ -413,7 +422,7 @@ class DiskStorage:
             return np.frombuffer(raw, dtype=_stored_dtype(e.dtype)).reshape(e.shape)
 
         pieces = ((e.bb, _read(e)) for e in entries if e.bb.intersects(roi))
-        out, covered = _assemble(pieces, roi)
+        out, covered = _assemble(pieces, roi, share=True)
         if out is None:
             raise KeyError(f"DISK: {key} has no chunks intersecting {roi}")
         if covered < roi.volume:

@@ -41,6 +41,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from repro_torch import spans, staging
 from repro_torch.core.bbox import BoundingBox
 from repro_torch.core.regions import RegionKey, StorageBackend
 from repro_torch.storage import copies
@@ -124,21 +125,31 @@ class TierStats:
 class MemoryTier:
     """Capacity-friendly in-process tier (StorageBackend protocol).
 
-    Chunks are kept exactly as written; ``get`` assembles the requested
-    ROI from every intersecting chunk (same contract as DISK/DMS).  The
+    Chunks are kept read-only, apart from the caller's array: one already
+    in a store's spare buffer (``copies.immutable``, such as the stages'
+    downloads) as it is, any other as a copy into such a buffer
+    (``copies.Spares``), counted in ``copies.stats()``. So an acknowledged
+    write never changes with the caller's array, and a spare is never
+    reused while a chunk lies in it. ``get`` assembles the requested ROI
+    from every intersecting chunk (same contract as DISK/DMS); a ROI that
+    one chunk covers is that chunk's read-only view. The
     :class:`TieredStore` drives eviction, so this class only tracks
-    resident bytes.
+    resident bytes: :attr:`pinned_bytes` of them page-locked.
     """
 
     def __init__(self, *, name: str = "MEM") -> None:
         self.name = name
         self._chunks: dict[RegionKey, list[tuple[BoundingBox, np.ndarray]]] = {}
         self._lock = threading.Lock()
+        self._spares = copies.Spares()
 
     def put(self, key: RegionKey, bb: BoundingBox, array: np.ndarray) -> None:
         arr = np.asarray(array)
         if tuple(arr.shape)[: bb.rank] != bb.shape:
             raise ValueError(f"payload shape {arr.shape} != bb shape {bb.shape}")
+        if not copies.immutable(arr):
+            copies.count("put", arr.nbytes)
+            arr = self._spares.copy(arr)
         with self._lock:
             chunks = self._chunks.setdefault(key, [])
             for i, (obb, _) in enumerate(chunks):
@@ -152,7 +163,7 @@ class MemoryTier:
             chunks = list(self._chunks.get(key, []))
         if not chunks:
             raise KeyError(f"{self.name}: no data for {key}")
-        out, covered = _assemble(chunks, roi)
+        out, covered = _assemble(chunks, roi, share=True)
         if out is None:
             raise KeyError(f"{self.name}: {key} has no chunks intersecting {roi}")
         if covered < roi.volume:
@@ -186,6 +197,16 @@ class MemoryTier:
     def used_bytes(self) -> int:
         with self._lock:
             return sum(a.nbytes for cs in self._chunks.values() for _, a in cs)
+
+    @property
+    def pinned_bytes(self) -> int:
+        """The resident bytes that lie in page-locked memory (the spares of a
+        process that holds a CUDA context, and the stages' downloads from a
+        card), which this tier keeps alive: part of :attr:`used_bytes`, so
+        within the tier's capacity once the store has enforced it."""
+        with self._lock:
+            arrays = [a for cs in self._chunks.values() for _, a in cs]
+        return sum(a.nbytes for a in arrays if staging.page_locked(a))
 
 
 @dataclasses.dataclass
@@ -307,6 +328,13 @@ class TieredStore:
 
     # -- StorageBackend protocol ----------------------------------------------------
     def put(self, key: RegionKey, bb: BoundingBox, array: np.ndarray) -> None:
+        """Store the payload in its placed tier, then as its write policy
+        says. While a profiler records, the put is the span ``tiers.put``
+        (``repro_torch.spans``), with the tiers' own spans inside."""
+        with spans.span("tiers.put"):
+            self._put(key, bb, array)
+
+    def _put(self, key: RegionKey, bb: BoundingBox, array: np.ndarray) -> None:
         arr = np.asarray(array)
         placement = self.policy.place(key, bb, arr.nbytes, arr.dtype)
         ti = self._tier_index(placement.tier)
@@ -339,6 +367,13 @@ class TieredStore:
         self._enforce_capacity(ti)
 
     def get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
+        """The ROI from the freshest tier that holds the key, the fastest on
+        a tie. While a profiler records, the read is the span ``tiers.get``,
+        with the tier's own spans inside."""
+        with spans.span("tiers.get"):
+            return self._get(key, roi)
+
+    def _get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
         arr = None
         ti = None
         # bounded retry: a concurrent demotion may move the payload down
@@ -817,6 +852,27 @@ class TieredStore:
 
     def tier_stats(self) -> dict[str, TierStats]:
         return {t.name: t.stats for t in self.tiers}
+
+    def counters(self) -> dict[str, float]:
+        """A snapshot of the store's counters, flat, to difference over a
+        window: each tier's :class:`TierStats` (``<tier>.<field>``), the
+        bytes a memory tier holds and the page-locked part of them
+        (``<tier>.used_bytes``, ``<tier>.pinned_bytes``; exact for memory
+        tiers alone), and the stats a backend keeps as a dataclass, such as
+        DISK's bytes read and written (``<tier>.bytes_read``,
+        ``<tier>.bytes_written``)."""
+        out: dict[str, float] = {}
+        with self._lock:
+            for t in self.tiers:
+                out.update({f"{t.name}.{k}": v for k, v in t.stats.as_dict().items()})
+        for t in self.tiers:
+            if isinstance(t.backend, MemoryTier):
+                out[f"{t.name}.used_bytes"] = t.backend.used_bytes
+                out[f"{t.name}.pinned_bytes"] = t.backend.pinned_bytes
+            own = getattr(t.backend, "stats", None)
+            if dataclasses.is_dataclass(own) and not isinstance(own, type):
+                out.update({f"{t.name}.{k}": v for k, v in dataclasses.asdict(own).items()})
+        return out
 
     def used_bytes(self, tier_name: str) -> int:
         ti = self._tier_index(tier_name)

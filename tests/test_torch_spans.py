@@ -4,10 +4,13 @@ into the profiler's trace. The test marked ``cuda`` skips where no card is
 present: on the card it counts one tile's host-device synchronisations,
 span by span and against ``torch.cuda.set_sync_debug_mode``. The last tests
 hold the region-template runtime's spans (``rt.stage.*``, ``rt.dispatch``)
-and the stores' (``dms.*``) on one image at one GPU's share of a node, and
-the benchmark's readers of them.
+and the stores' (``dms.*``) on one image at one GPU's share of a node, the
+tiered stores' (``tiers.*``, ``disk.get``) on the same image over a DISK
+tier, and the benchmark's readers of them.
 """
+import shutil
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -177,12 +180,32 @@ def test_one_card_tile_counts_its_host_syncs():
 NODE_CFG = WSIConfig(tile=128, max_objects_per_tile=16)
 
 
-def rt_image(n: int = 4) -> dict:
+def rt_image(n: int = 4, tiered: bool = False) -> dict:
     """One image of ``n`` 128^2 tiles through the RT stages at one GPU's share
     of a node (3 CPU threads, 1 accelerator thread, 4 stages active), the
-    tiles through the in-process DMS; returns the stages by tile."""
+    tiles through the in-process DMS, or with ``tiered`` through tiered
+    stores whose placement pins the RGB to the DISK tier; returns the stages
+    by tile."""
     size = NODE_CFG.tile
-    reg = make_wsi_storage(size, n * size, tile=size)
+    if not tiered:
+        reg = make_wsi_storage(size, n * size, tile=size)
+        return _rt_image(reg, n)
+    from repro_torch.storage.placement import PlacementPolicy, when
+
+    root = tempfile.mkdtemp(prefix="spans_tiers_")
+    pin = when(lambda key, bb, nbytes, dtype: key.name == "RGB", "DISK", pinned=True)
+    reg = make_wsi_storage(size, n * size, mode="tiered", tile=size, root=root,
+                           policy=PlacementPolicy([pin]))
+    try:
+        return _rt_image(reg, n)
+    finally:
+        for name in ("DMS3", "DMS2"):
+            reg.get(name).close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _rt_image(reg, n: int) -> dict:
+    size = NODE_CFG.tile
     rt = RegionTemplate("Patient")
     dom3 = BoundingBox((0, 0, 0), (3, size, n * size))
     rgb = rt.new_region("RGB", dom3, np.float32, input_storage="DMS3", lazy=True)
@@ -255,6 +278,42 @@ def test_the_stores_record_get_and_put_with_the_assembly_inside_get():
         assert by_id[rec.parent].name.startswith("rt.stage.")
 
 
+def test_the_tiered_stores_record_their_puts_and_gets_under_the_stages():
+    spans.reset()
+    with torch.profiler.profile(activities=CPU):
+        rt_image(2, tiered=True)
+    recs = spans.records()
+    spans.reset()
+    names = by_name(recs)
+    by_id = {r.id: r for r in recs}
+
+    def parent(rec) -> str | None:
+        return by_id[rec.parent].name if rec.parent is not None else None
+
+    # per tile: the RGB put (the caller's), the mask and the hematoxylin put
+    # (the segmentation's); the RGB read from DISK, the two read back from memory
+    puts, gets = names["tiers.put"], names["tiers.get"]
+    assert len(puts) == 6 and len(gets) == 6
+    assert sorted(map(str, map(parent, puts))) == ["None"] * 2 + ["rt.stage.SegmentationStage"] * 4
+    assert sorted(map(parent, gets)) == (["rt.stage.FeatureStage"] * 4
+                                         + ["rt.stage.SegmentationStage"] * 2)
+    (d1, d2) = names["disk.get"]  # the RGB reads alone: the stage data stays in memory
+    for d in (d1, d2):
+        outer = by_id[d.parent]
+        assert outer.name == "tiers.get" and parent(outer) == "rt.stage.SegmentationStage"
+        assert outer.start_ns <= d.start_ns <= d.end_ns <= outer.end_ns
+    # every put is written through to the DMS tier, inside the tiered put
+    assert len(names["dms.put"]) == 6 and {parent(r) for r in names["dms.put"]} == {"tiers.put"}
+    assert "dms.get" not in names
+
+
+def test_without_a_profiler_the_tiered_stores_record_nothing():
+    spans.reset()
+    stages = rt_image(1, tiered=True)
+    assert spans.records() == []
+    assert all(s.ready_ns is None for pair in stages for s in pair)
+
+
 def test_without_a_profiler_the_runtime_and_stores_record_nothing():
     spans.reset()
     stages = rt_image(1)
@@ -280,7 +339,9 @@ def test_record_keeps_a_span_started_elsewhere_under_the_open_span():
     assert alone.parent is None and alone.end_ns - alone.start_ns == 5
 
 
-@pytest.mark.parametrize("metric", ["dispatch_ms.rt", "assemble_ms.rt", "store_copied_mb.rt"])
+@pytest.mark.parametrize("metric", ["dispatch_ms.rt", "assemble_ms.rt", "store_copied_mb.rt",
+                                    "disk_read_ms.tiered", "tier_put_ms.tiered",
+                                    "disk_read_mb.tiered"])
 def test_the_runtime_and_store_readers_read_none_on_a_run_that_recorded_nothing(metric):
     from rtbench import harness
 
@@ -288,6 +349,6 @@ def test_the_runtime_and_store_readers_read_none_on_a_run_that_recorded_nothing(
 
     spans.reset()
     copies.reset_stats()
-    run = SimpleNamespace(tally=SimpleNamespace(completed=4),
+    run = SimpleNamespace(tally=SimpleNamespace(completed=4), counters={},
                           traffic={"warm_images": 1, "tiles_per_image": 4})
     assert harness.load_reader(metric)(run) is None
