@@ -20,7 +20,8 @@ call it: ``pipeline/wsi.py``'s stages and the chains' local call
 * The rule. Host memory is page-locked only where this process already holds
   a CUDA context (:func:`pinning`), so a process that never meets a card,
   such as a socket storage server, pins nothing. New page-locked buffers come
-  from torch's caching host allocator (:func:`host_buffer`).
+  from torch's caching host allocator (:func:`host_buffer`), which keeps
+  them when they die until :func:`empty_host_cache`.
   :func:`page_locked` says whether a host buffer is page-locked.
 * Host to card (:func:`to_device`): a page-locked source is read by DMA as it
   is; a pageable one is copied first into pinned memory by ``pin_memory()``
@@ -85,6 +86,15 @@ def host_buffer(nbytes: int) -> np.ndarray:
     if pinning():
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
     return np.empty(nbytes, np.uint8)
+
+
+def empty_host_cache() -> None:
+    """Free the page-locked blocks that torch's caching host allocator keeps
+    and nothing holds (a free synchronises the device), as a bulk read whose
+    buffers will not be wanted again ends."""
+    if pinning():
+        empty = getattr(torch.accelerator, "empty_host_cache", None)  # newer torch's name
+        (empty or torch._C._host_emptyCache)()
 
 
 def page_locked(x) -> bool:

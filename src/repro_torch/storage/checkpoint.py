@@ -351,7 +351,10 @@ class CheckpointManager:
                 return tree
             return value if tree.device.type == "meta" else value.to(tree.device)
 
-        return rebuild(target, ())
+        try:
+            return rebuild(target, ())
+        finally:  # every leaf is copied out: its read spares would only sit idle
+            self.store.drop_spares()
 
 
 def _placement_paths(tree: Any, prefix: tuple[str, ...] = ()) -> list[tuple[str, tuple]]:

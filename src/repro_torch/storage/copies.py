@@ -13,7 +13,10 @@ from the allocator, its pages fault in as the copy first writes them. An
 array in a spare buffer is read-only and nothing else can write its buffer,
 so a store keeps it without a copy (:func:`immutable`): :func:`download`
 brings a tensor to the host that way, as the region-template stages hand
-their outputs to the stores.
+their outputs to the stores. The DISK tier reads each chunk from its
+file straight into a spare (:meth:`Spares.fill`, ``storage/disk.py``), so a
+read, like a put or a download, writes pages that an earlier block of its
+size faulted in, and the block it hands out goes up by DMA.
 
 New spares come from ``staging.host_buffer``: page-locked where the process
 already holds a CUDA context, from torch's caching host allocator (which
@@ -97,7 +100,8 @@ class Spares:
     has gone.
 
     :meth:`copy` returns a read-only copy of an array in a buffer that a
-    block of the same size held before, where one is free. The buffer comes
+    block of the same size held before, where one is free; :meth:`fill`
+    lets its caller write that buffer, as a file read does. The buffer comes
     back when the last array over the copy dies, the store's block and every
     view handed out of it alike, so a buffer is never written while anything
     can read it. At most ``keep`` free buffers of one size are kept; the rest
@@ -124,23 +128,42 @@ class Spares:
             dtype, shape, nbytes = src.dtype, src.shape, src.nbytes
             if not nbytes or dtype.hasobject:
                 return _read_only(np.array(src, copy=True))
+
+        def write(raw: np.ndarray) -> None:
+            out = raw.view(dtype).reshape(shape)
+            if isinstance(src, torch.Tensor):
+                staging.to_host(src.detach(), torch.from_numpy(out))
+            else:
+                _host_copy(out, src)
+
+        return self.fill(nbytes, dtype, shape, write)[0]
+
+    def fill(self, nbytes: int, dtype, shape, write) -> tuple[np.ndarray, bool]:
+        """(A read-only array of ``dtype`` and ``shape`` over a spare of
+        ``nbytes``, whether that spare is one an earlier array let go of).
+        ``write(raw)`` fills the spare first, given it as a writable uint8
+        array of ``nbytes`` that it must not keep; where it raises, the spare
+        is dropped. The lease is :meth:`copy`'s."""
         pin = staging.pinning()
         with self._lock:
             free = self._free.get(nbytes)
             if free and pin:  # pageable spares from before the context
                 free[:] = [spare for spare in free if spare[1]]
             raw, pinned = free.pop() if free else (None, pin)
-        if raw is None:
+        reused = raw is not None
+        if not reused:
             raw = staging.host_buffer(nbytes)  # page-locked where ``pin``
-        out = raw.view(dtype).reshape(shape)
-        if isinstance(src, torch.Tensor):
-            staging.to_host(src.detach(), torch.from_numpy(out))
-        else:
-            _host_copy(out, src)
+        write(raw)
         lease = _Lease(raw)
         block = np.frombuffer(lease, dtype=dtype)
         weakref.finalize(lease, self._give_back, raw, pinned).atexit = False
-        return block.reshape(shape)
+        return block.reshape(shape), reused
+
+    def clear(self) -> None:
+        """Let go of every free buffer; a buffer still leased comes back as
+        before."""
+        with self._lock:
+            self._free.clear()
 
     def _give_back(self, raw: np.ndarray, pinned: bool) -> None:
         if not pinned and staging.pinning():

@@ -42,9 +42,10 @@ import uuid
 
 import numpy as np
 
-from repro_torch import spans
+from repro_torch import spans, staging
 from repro_torch.core.bbox import BoundingBox
 from repro_torch.core.regions import ElementType, RegionKey
+from repro_torch.storage import copies
 
 
 @dataclasses.dataclass
@@ -69,6 +70,10 @@ class DiskStats:
     virtual_io_s: float = 0.0
     virtual_sync_s: float = 0.0
     virtual_comm_s: float = 0.0
+    # chunks read by ``get``, and of those the ones read into a spare that an
+    # earlier read let go of
+    chunk_reads: int = 0
+    chunk_reads_reused: int = 0
 
     @property
     def virtual_total_s(self) -> float:
@@ -133,6 +138,22 @@ def _stored_dtype(name: str) -> np.dtype:
     raw 16-bit words (``uint16``; ``view(torch.bfloat16)`` of a tensor of
     them gives the values), so reading needs no ``ml_dtypes``."""
     return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
+
+
+def _read_into(path: str, e: _ManifestEntry, buf: np.ndarray) -> None:
+    """Fill ``buf`` with the chunk's bytes, unbuffered, a read at a time (a
+    network file system may return fewer bytes than asked); raises where the
+    file ends first, so no byte of an earlier chunk in ``buf`` is handed out."""
+    view = memoryview(buf).cast("B")
+    with open(path, "rb", buffering=0) as f:
+        f.seek(e.offset)
+        done = 0
+        while done < e.nbytes:
+            n = f.readinto(view[done:])
+            if not n:
+                raise EOFError(f"DISK: {path} ends {done} bytes into the {e.nbytes}-byte "
+                               f"chunk at offset {e.offset}")
+            done += n
 
 
 class _IOGroup:
@@ -209,6 +230,7 @@ class DiskStorage:
         self.distribution = distribution
         self.cost = cost_model or DiskCostModel()
         self.stats = DiskStats()
+        self._spares = copies.Spares(keep=4)  # an image of 4 tiles holds 4 RGB reads at once
         self._rng = random.Random(seed)
         self._rr = 0
         self._lock = threading.Lock()
@@ -397,12 +419,32 @@ class DiskStorage:
 
     # -- read path ---------------------------------------------------------------------
     def get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
-        """The ROI assembled from the chunks' files. Each chunk is read into
-        bytes of its own, never written, so a ROI that one chunk holds is
-        that chunk's read-only view. While a profiler records, the read is
-        the span ``disk.get`` (``repro_torch.spans``)."""
+        """The ROI assembled from the chunks' files. Each chunk is read into a
+        spare (``copies.Spares``: page-locked once the process holds a CUDA
+        context, reused once every array over it is gone) and handed out
+        read-only, so a ROI that one chunk holds is a read-only view of a
+        spare. While a profiler records, the read is the span ``disk.get``
+        (``repro_torch.spans``)."""
         with spans.span("disk.get"):
             return self._get(key, roi)
+
+    def drop_spares(self) -> None:
+        """Let go of the free read spares and give their page-locked memory
+        back, as a bulk read that will not come again (a checkpoint restore)
+        ends."""
+        self._spares.clear()
+        staging.empty_host_cache()
+
+    def _read(self, e: _ManifestEntry) -> np.ndarray:
+        """One chunk, read-only, as its manifest entry gives it."""
+        path = os.path.join(self.root, e.file)
+        out, reused = self._spares.fill(e.nbytes, _stored_dtype(e.dtype), e.shape,
+                                        lambda buf: _read_into(path, e, buf))
+        with self._lock:
+            self.stats.bytes_read += e.nbytes
+            self.stats.chunk_reads += 1
+            self.stats.chunk_reads_reused += reused
+        return out
 
     def _get(self, key: RegionKey, roi: BoundingBox) -> np.ndarray:
         from repro_torch.storage.tiers import _assemble
@@ -412,16 +454,7 @@ class DiskStorage:
         if not entries:
             raise KeyError(f"DISK: no data for {key}")
 
-        def _read(e: _ManifestEntry) -> np.ndarray:
-            path = os.path.join(self.root, e.file)
-            with open(path, "rb") as f:
-                f.seek(e.offset)
-                raw = f.read(e.nbytes)
-            with self._lock:
-                self.stats.bytes_read += e.nbytes
-            return np.frombuffer(raw, dtype=_stored_dtype(e.dtype)).reshape(e.shape)
-
-        pieces = ((e.bb, _read(e)) for e in entries if e.bb.intersects(roi))
+        pieces = ((e.bb, self._read(e)) for e in entries if e.bb.intersects(roi))
         out, covered = _assemble(pieces, roi, share=True)
         if out is None:
             raise KeyError(f"DISK: {key} has no chunks intersecting {roi}")
